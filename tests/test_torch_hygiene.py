@@ -1,0 +1,75 @@
+"""The port stands alone: no module of ``active_learning_tpu_torch``, and
+nothing in ``chip_smoke.py``, imports jax, flax, optax, msgpack or the
+JAX package.
+
+Two checks: every port module imports in a fresh interpreter where those
+names are blocked in ``sys.modules``; and an AST scan of every import
+statement in the package and in ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "active_learning_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "active_learning_tpu")
+
+
+def _port_files():
+    out = []
+    for root, _dirs, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _module_name(path: str) -> str:
+    rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+    return rel[:-len(".__init__")] if rel.endswith(".__init__") else rel
+
+
+def test_every_module_imports_with_jax_blocked():
+    modules = [_module_name(p) for p in _port_files()]
+    assert len(modules) > 20
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(n for n in sys.modules if sys.modules[n] is not None\n"
+        f"             and n.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("ok")
+
+
+def _imports(path: str):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files()
+                         + [os.path.join(REPO, "chip_smoke.py")],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_forbidden_import_statement(path):
+    bad = [name for name in _imports(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
