@@ -1,9 +1,18 @@
-"""Typed configs of the port (``ServeConfig`` of the JAX package's
-``config.py``)."""
+"""Typed configs of the port (the JAX package's ``config.py``).
+
+``LoaderConfig``, ``OptimizerConfig``, ``SchedulerConfig``,
+``PretrainedConfig`` and ``TrainConfig`` keep the JAX package's field
+names and defaults for every field the port reads; ``ExperimentConfig``
+keeps the CLI-facing fields of the training slice.  Fields of the JAX
+package that steer paths the port does not carry yet (device-resident
+feeds, the disk tier, multi-host, profiling, fault injection) are left
+out rather than carried as dead knobs.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,3 +40,144 @@ class ServeConfig:
     reload_every_s: float = 5.0
     # Bound on the SIGTERM graceful drain (in-flight completion).
     drain_timeout_s: float = 30.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LoaderConfig:
+    """Host input-pipeline parameters (the reference's DataLoader
+    kwargs): ``num_workers`` gather threads, ``prefetch`` batches in
+    flight."""
+
+    batch_size: int = 128
+    num_workers: int = 0
+    prefetch: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Optimizer selection, resolved by name in ``train/optim.py``."""
+
+    name: str = "sgd"
+    lr: float = 0.1
+    weight_decay: float = 5e-4
+    momentum: float = 0.9
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """LR schedule stepped once per epoch: "step" (step_size/gamma),
+    "cosine" (t_max, optional linear warmup) or "constant"."""
+
+    name: str = "cosine"
+    step_size: int = 60
+    gamma: float = 0.1
+    t_max: int = 200
+    warmup_epochs: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainedConfig:
+    """SSL / transfer checkpoint ingestion.  The port reads only whether
+    a path is configured: loading such a checkpoint waits until the
+    files are in the repository (ROADMAP.md)."""
+
+    path: Optional[str] = None
+    required_key: Optional[Tuple[str, ...]] = None
+    skip_key: Optional[Tuple[str, ...]] = None
+    replace_key: Optional[Tuple[Tuple[str, str], ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Per-dataset training hyperparameters: one entry of an arg pool."""
+
+    eval_split: float = 0.01
+    # Compute precision of convolutions and activations: "auto" = bf16
+    # on the card, float32 on the CPU (models/factory.resolve_dtype).
+    dtype: str = "auto"
+    # BN batch-statistics precision: "auto" follows the compute dtype
+    # (bf16 -> FusedBatchNorm's formula, float32 -> flax's).
+    bn_stats_dtype: str = "auto"
+    stem: str = "default"
+    loader_tr: LoaderConfig = dataclasses.field(default_factory=LoaderConfig)
+    loader_te: LoaderConfig = dataclasses.field(
+        default_factory=lambda: LoaderConfig(batch_size=100))
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=OptimizerConfig)
+    scheduler: SchedulerConfig = dataclasses.field(
+        default_factory=SchedulerConfig)
+    pretrained: PretrainedConfig = dataclasses.field(
+        default_factory=PretrainedConfig)
+    imbalanced_training: bool = False
+    # "auto"/"on": the fused SGD update (kernel D) for SGD-family
+    # optimizers, its state in optim_state_dtype; "off": the JAX
+    # package's optax chain, float32 state, which kernel D computes bit
+    # for bit at that state.
+    fused_optimizer: str = "auto"
+    # Momentum-buffer storage dtype on the fused path: "f32" or "bf16".
+    optim_state_dtype: str = "f32"
+
+    @property
+    def has_pretrained(self) -> bool:
+        return self.pretrained.path is not None
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    """Top-level experiment configuration (the CLI flags the training
+    slice carries, with the JAX package's names and defaults)."""
+
+    exp_name: str = "active_learning"
+    exp_hash: Optional[str] = None
+    log_dir: str = "./logs"
+    ckpt_path: str = "./checkpoint"
+
+    dataset: str = "cifar10"
+    arg_pool: str = "default"
+
+    strategy: str = "RandomSampler"
+    rounds: int = 5
+    round_budget: int = 5000
+    freeze_feature: bool = False
+    init_pool_size: int = -1  # -1 => round_budget
+    init_pool_type: str = "random"  # "random" | "random_balance"
+
+    model: str = "SSLResNet18"
+    n_epoch: int = 60
+    early_stop_patience: int = 30
+
+    # Overrides of the arg pool's TrainConfig; None defers to it.
+    dtype: Optional[str] = None
+    bn_stats_dtype: Optional[str] = None
+    fused_optimizer: Optional[str] = None
+    optim_state_dtype: Optional[str] = None
+
+    # The reference's fixed seeds (eval split 99, init pool 98) and the
+    # run's own.
+    eval_split_seed: int = 99
+    init_pool_seed: int = 98
+    run_seed: int = 0
+
+    # "cuda" (the default; raises without a card) or "cpu".
+    device: str = "cuda"
+
+    def resolved_init_pool_size(self) -> int:
+        if self.init_pool_size == -1:
+            return int(self.round_budget)
+        return int(self.init_pool_size)
+
+
+def config_to_dict(cfg: Any) -> Dict[str, Any]:
+    """Flatten a (possibly nested) dataclass config into a plain dict,
+    nested fields as ``parent.child`` (the JAX package's echo format)."""
+    out: Dict[str, Any] = {}
+
+    def _walk(prefix: str, obj: Any) -> None:
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            for f in dataclasses.fields(obj):
+                _walk(f"{prefix}{f.name}.", getattr(obj, f.name))
+        else:
+            out[prefix[:-1]] = obj
+
+    _walk("", cfg)
+    return out

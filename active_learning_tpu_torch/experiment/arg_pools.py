@@ -1,43 +1,122 @@
-"""The arg pools, reduced to what ``serve`` reads from them.
+"""Registered per-dataset training presets ("arg pools"), copied from
+the JAX package's ``experiment/arg_pools.py``: each pool is a
+``{dataset: TrainConfig}`` mapping registered under the reference's name.
 
-The JAX package's ``experiment/arg_pools.py`` registers per-dataset
-training presets; resolving the served model replays the driver's rule
-"config echo beats arg pool" for three fields only: the compute dtype,
-the BN-statistics dtype and the stem.  Every preset there leaves all
-three at their defaults; this table keeps which (pool, dataset) pairs
-exist, so an unknown pair still raises KeyError as it does there.  The
-rest of each preset (optimizer, schedule, loaders, pretrained paths)
-comes with the training slice.
+Sources (the reference's arg-pool modules):
+  * "default"                — src/arg_pools/default.py:5-46
+  * "ssp_finetuning"         — src/arg_pools/ssp_finetuning.py:4-39
+  * "ssp_linear_evaluation"  — src/arg_pools/ssp_linear_evaluation.py:4-26
+  * "ssp_finetuning_imbalanced_cifar10_imb_0_1"  /  "..._0_01"
+  * "synthetic"              — the egress-free synthetic dataset.
+
+The pretrained paths are kept as the JAX package names them; the port
+does not load them yet (ROADMAP.md), so a pool that configures one
+trains only where the trainer's rule allows (see train/trainer.py).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict
 
+from ..config import (LoaderConfig, OptimizerConfig, PretrainedConfig,
+                      SchedulerConfig, TrainConfig)
 from ..registry import ARG_POOLS
 
+_CIFAR_TR = LoaderConfig(batch_size=128, num_workers=0)
+_CIFAR_TE = LoaderConfig(batch_size=100, num_workers=0)
+_IMAGENET_TR = LoaderConfig(batch_size=128, num_workers=12, prefetch=2)
+_IMAGENET_TE = LoaderConfig(batch_size=128, num_workers=12, prefetch=2)
 
-@dataclasses.dataclass(frozen=True)
-class TrainConfig:
-    dtype: str = "auto"
-    bn_stats_dtype: str = "auto"
-    stem: str = "default"
+_SIMCLR_CIFAR = PretrainedConfig(
+    path="pretrained_ckpt/cifar10/simclr.pth.tar",
+    required_key=("encoder",), skip_key=("linear",))
+_MOCO_IMAGENET = PretrainedConfig(
+    path="pretrained_ckpt/imagenet/moco_v2_800ep_pretrain.pth.tar",
+    required_key=("encoder_q",), skip_key=("fc",),
+    replace_key=(("encoder_q", "encoder"),))
 
 
-_DEFAULT = TrainConfig()
-
-_POOLS: Dict[str, tuple] = {
-    "default": ("cifar10", "imbalanced_cifar10", "imagenet",
-                "imbalanced_imagenet"),
-    "ssp_finetuning": ("cifar10", "imagenet"),
-    "ssp_linear_evaluation": ("imagenet",),
-    "ssp_finetuning_imbalanced_cifar10_imb_0_1": ("imbalanced_cifar10",),
-    "ssp_finetuning_imbalanced_cifar10_imb_0_01": ("imbalanced_cifar10",),
-    "synthetic": ("synthetic",),
+DEFAULT_POOL: Dict[str, TrainConfig] = {
+    "cifar10": TrainConfig(
+        eval_split=0.01, loader_tr=_CIFAR_TR, loader_te=_CIFAR_TE,
+        optimizer=OptimizerConfig("sgd", lr=0.1, weight_decay=5e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig("cosine", t_max=200)),
+    "imbalanced_cifar10": TrainConfig(
+        eval_split=0.01, loader_tr=_CIFAR_TR, loader_te=_CIFAR_TE,
+        optimizer=OptimizerConfig("sgd", lr=0.1, weight_decay=5e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig("cosine", t_max=200),
+        imbalanced_training=True),
+    "imagenet": TrainConfig(
+        eval_split=0.01, loader_tr=_IMAGENET_TR, loader_te=_IMAGENET_TE,
+        optimizer=OptimizerConfig("sgd", lr=0.1, weight_decay=1e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig("step", step_size=60, gamma=0.1)),
+    "imbalanced_imagenet": TrainConfig(
+        eval_split=0.01, loader_tr=_IMAGENET_TR, loader_te=_IMAGENET_TE,
+        optimizer=OptimizerConfig("sgd", lr=0.1, weight_decay=1e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig("step", step_size=60, gamma=0.1),
+        imbalanced_training=True),
 }
-for _name, _datasets in _POOLS.items():
-    ARG_POOLS.register(_name, {d: _DEFAULT for d in _datasets})
+
+SSP_FINETUNING_POOL: Dict[str, TrainConfig] = {
+    "cifar10": TrainConfig(
+        eval_split=0.1, loader_tr=_CIFAR_TR, loader_te=_CIFAR_TE,
+        optimizer=OptimizerConfig("sgd", lr=0.001, weight_decay=5e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig("cosine", t_max=200),
+        pretrained=_SIMCLR_CIFAR),
+    "imagenet": TrainConfig(
+        eval_split=0.01, loader_tr=_IMAGENET_TR, loader_te=_IMAGENET_TE,
+        optimizer=OptimizerConfig("sgd", lr=0.001, weight_decay=0.0,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig("step", step_size=10, gamma=0.1),
+        pretrained=_MOCO_IMAGENET),
+}
+
+SSP_LINEAR_EVALUATION_POOL: Dict[str, TrainConfig] = {
+    "imagenet": TrainConfig(
+        eval_split=0.01,
+        loader_tr=LoaderConfig(batch_size=128, num_workers=8, prefetch=2),
+        loader_te=LoaderConfig(batch_size=128, num_workers=8, prefetch=2),
+        optimizer=OptimizerConfig("sgd", lr=15.0, weight_decay=1e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig("step", step_size=20, gamma=0.1),
+        pretrained=_MOCO_IMAGENET),
+}
+
+
+def _imb_cifar_pool(ckpt: str) -> Dict[str, TrainConfig]:
+    return {
+        "imbalanced_cifar10": TrainConfig(
+            eval_split=0.1, loader_tr=_CIFAR_TR, loader_te=_CIFAR_TE,
+            optimizer=OptimizerConfig("sgd", lr=0.002, weight_decay=0.0,
+                                      momentum=0.9),
+            scheduler=SchedulerConfig("cosine", t_max=200),
+            pretrained=PretrainedConfig(
+                path=ckpt, required_key=("encoder",), skip_key=("linear",)),
+            imbalanced_training=True),
+    }
+
+
+ARG_POOLS.register("default", DEFAULT_POOL)
+ARG_POOLS.register("ssp_finetuning", SSP_FINETUNING_POOL)
+ARG_POOLS.register("ssp_linear_evaluation", SSP_LINEAR_EVALUATION_POOL)
+ARG_POOLS.register(
+    "ssp_finetuning_imbalanced_cifar10_imb_0_1",
+    _imb_cifar_pool("pretrained_ckpt/cifar10/simclr_imb_pretrain0_1.tar"))
+ARG_POOLS.register(
+    "ssp_finetuning_imbalanced_cifar10_imb_0_01",
+    _imb_cifar_pool("pretrained_ckpt/cifar10/simclr_imb_pretrain0_01.tar"))
+ARG_POOLS.register("synthetic", {
+    "synthetic": TrainConfig(
+        eval_split=0.1, loader_tr=_CIFAR_TR, loader_te=_CIFAR_TE,
+        optimizer=OptimizerConfig("sgd", lr=0.05, weight_decay=5e-4,
+                                  momentum=0.9),
+        scheduler=SchedulerConfig("cosine", t_max=200)),
+})
 
 
 def get_train_config(arg_pool: str, dataset: str) -> TrainConfig:

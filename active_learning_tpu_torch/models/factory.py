@@ -65,8 +65,10 @@ def get_network(dataset: str, model_name: str,
                 num_classes: Optional[int] = None, dtype: Any = "auto",
                 stem: str = "default", bn_stats_dtype: Any = "auto",
                 device: Union[str, torch.device] = "cuda",
-                num_filters: int = 64) -> SSLClassifier:
-    """The eval-mode network on ``device``, channels-last."""
+                num_filters: int = 64,
+                freeze_feature: bool = False) -> SSLClassifier:
+    """The network on ``device``, channels-last, in eval mode (the
+    trainer switches it to training mode for a fit)."""
     if num_classes is None:
         try:
             num_classes = DATASET_NUM_CLASSES[dataset]
@@ -82,11 +84,11 @@ def get_network(dataset: str, model_name: str,
     if stem != "default":
         raise NotImplementedError(
             f"stem {stem!r} is not ported yet (ROADMAP.md); the port "
-            "serves the default 7x7/s2 stem and the CIFAR stem")
+            "runs the default 7x7/s2 stem and the CIFAR stem")
     compute = resolve_dtype(dtype, device)
     fused = resolve_bn_stats_dtype(bn_stats_dtype, compute,
                                    device) == torch.bfloat16
     model = factory(num_classes=num_classes, cifar_stem=cifar_stem,
                     dtype=compute, fused_stats=fused,
-                    num_filters=num_filters)
+                    num_filters=num_filters, freeze_feature=freeze_feature)
     return model.to(device=device, memory_format=torch.channels_last)

@@ -1,5 +1,5 @@
 """ResNet-18/50 with the SimCLR CIFAR stem and a split encoder / linear
-head, in eval mode (the JAX package's ``models/resnet.py``).
+head (the JAX package's ``models/resnet.py``).
 
 Module and parameter names are flax's (``encoder.conv_stem``,
 ``encoder.stage1_block0.Conv_0``, ``...BatchNorm_0``,
@@ -12,12 +12,18 @@ Layout and precision, as in the JAX package: the public input is NHWC
 compute precision of the convolutions and activations (bf16 on the
 card), while parameters and BN statistics stay float32 and the pooled
 embedding and the head are float32.  Every BatchNorm, with the residual
-add and ReLU that follow it, is one call of ``ops.bn_act`` (kernel B).
-Convolutions, max-pool, the global mean and the head are stock PyTorch
-(cuDNN/cuBLAS), as they were XLA's generic lowering in the JAX package.
+add and ReLU that follow it, is one call of ``ops.bn_act`` (kernel B) in
+eval mode, and of ``ops.bn_train`` (kernel C, whose normalize pass is
+kernel B) in training mode.  Convolutions, max-pool, the global mean and
+the head are stock PyTorch (cuDNN/cuBLAS), as they were XLA's generic
+lowering in the JAX package.
 
-BatchNorm is eval mode only: training mode raises, and belongs to the
-training slice (ROADMAP.md).
+Training mode (``model.train()``) uses batch statistics and updates the
+running statistics outside the graph, ``ra = 0.9·ra + 0.1·batch`` with
+the biased batch variance, as flax does.  Eval-mode BatchNorm has no
+backward (kernel B is forward-only), so a forward that needs gradients
+through an eval-mode BatchNorm raises: that is pretrained fine-tuning,
+still to be ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import bn_act as bn_act_lib
+from ..ops import bn_train as bn_train_lib
 
 
 def _cache_key(tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> Tuple:
@@ -40,8 +47,10 @@ def _cache_key(tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> Tuple:
 
 class Conv(nn.Module):
     """Bias-free 2-D convolution with float32 weights computed in
-    ``dtype``: the weight's ``dtype`` channels-last copy is made once
-    per weight version, not once per forward."""
+    ``dtype``.  When gradients are recorded the cast is part of the
+    graph (the weight's gradient arrives in float32); otherwise the
+    ``dtype`` channels-last copy is made once per weight version, not
+    once per forward."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype: torch.dtype = torch.float32):
@@ -56,6 +65,9 @@ class Conv(nn.Module):
         self._cast_key: Optional[Tuple] = None
 
     def compute_weight(self) -> torch.Tensor:
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            return self.weight.to(dtype=self.dtype,
+                                  memory_format=torch.channels_last)
         key = _cache_key((self.weight,), self.dtype)
         if key != self._cast_key:
             with torch.no_grad():
@@ -70,11 +82,15 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm: float32 ``scale``/``bias`` parameters and
-    float32 running ``mean``/``var``, applied through kernel B with an
-    optional residual add and ReLU fused in.  ``fused_stats`` selects the
+    """BatchNorm with float32 ``scale``/``bias`` parameters and float32
+    running ``mean``/``var``, with an optional residual add and ReLU
+    fused in.  Eval mode applies the running statistics through kernel
+    B; training mode normalizes with the batch statistics through
+    kernel C and updates the running ones.  ``fused_stats`` selects the
     JAX package's ``FusedBatchNorm`` formula (bf16 statistics), else
     flax ``nn.BatchNorm``'s."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, dtype: torch.dtype,
                  fused_stats: bool, eps: float = 1e-5):
@@ -105,9 +121,21 @@ class BatchNorm(nn.Module):
                 residual: Optional[torch.Tensor] = None,
                 relu: bool = False) -> torch.Tensor:
         if self.training:
+            y, mean, var = bn_train_lib.bn_train(
+                x, self.scale, self.bias, self.eps, self.fused_stats,
+                residual, relu)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+            return y
+        if torch.is_grad_enabled() and (
+                x.requires_grad or self.scale.requires_grad):
             raise NotImplementedError(
-                "BatchNorm training mode belongs to the port's training "
-                "slice (ROADMAP.md); call .eval() to score")
+                "training through an eval-mode BatchNorm (pretrained "
+                "fine-tuning) needs a backward for kernel B, still to be "
+                "ported (ROADMAP.md); train BN in training mode, or run "
+                "the forward under torch.no_grad()")
         return bn_act_lib.bn_act(x, self.coefficients(), residual, relu)
 
 
@@ -221,15 +249,21 @@ class SSLClassifier(nn.Module):
       * ``model(x)``                        -> logits
       * ``model(x, return_features=True)``  -> (logits, embedding)
       * ``model.head(embedding)``           -> logits from an embedding
+
+    ``freeze_feature`` runs the encoder under ``torch.no_grad()``, so
+    only the head trains (the JAX model's ``stop_gradient`` on the
+    embedding).
     """
 
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_classes: int, cifar_stem: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 fused_stats: bool = False, num_filters: int = 64):
+                 fused_stats: bool = False, num_filters: int = 64,
+                 freeze_feature: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.cifar_stem = cifar_stem
+        self.freeze_feature = freeze_feature
         self.dtype = dtype
         self.encoder = ResNetEncoder(stage_sizes, block_cls, num_filters,
                                      cifar_stem, dtype, fused_stats)
@@ -243,7 +277,11 @@ class SSLClassifier(nn.Module):
         return self.encoder.embed_dim
 
     def forward(self, x: torch.Tensor, return_features: bool = False):
-        embedding = self.encoder(x)
+        if self.freeze_feature:
+            with torch.no_grad():
+                embedding = self.encoder(x)
+        else:
+            embedding = self.encoder(x)
         logits = self.linear(embedding)
         if return_features:
             return logits, embedding
@@ -255,13 +293,41 @@ class SSLClassifier(nn.Module):
 
 def resnet18(num_classes: int, cifar_stem: bool = False,
              dtype: torch.dtype = torch.float32, fused_stats: bool = False,
-             num_filters: int = 64) -> SSLClassifier:
-    return SSLClassifier([2, 2, 2, 2], BasicBlock, num_classes, cifar_stem,
-                         dtype, fused_stats, num_filters)
+             num_filters: int = 64, freeze_feature: bool = False,
+             stage_sizes: Sequence[int] = (2, 2, 2, 2)) -> SSLClassifier:
+    return SSLClassifier(stage_sizes, BasicBlock, num_classes, cifar_stem,
+                         dtype, fused_stats, num_filters, freeze_feature)
 
 
 def resnet50(num_classes: int, cifar_stem: bool = False,
              dtype: torch.dtype = torch.float32, fused_stats: bool = False,
-             num_filters: int = 64) -> SSLClassifier:
-    return SSLClassifier([3, 4, 6, 3], BottleneckBlock, num_classes,
-                         cifar_stem, dtype, fused_stats, num_filters)
+             num_filters: int = 64, freeze_feature: bool = False,
+             stage_sizes: Sequence[int] = (3, 4, 6, 3)) -> SSLClassifier:
+    return SSLClassifier(stage_sizes, BottleneckBlock, num_classes,
+                         cifar_stem, dtype, fused_stats, num_filters,
+                         freeze_feature)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Fresh random weights in place, with the JAX package's
+    initializers: convolutions He-normal over fan-out (``std =
+    sqrt(2 / (out·kh·kw))``), the head's weight N(0, 1e-3) and bias 0,
+    BatchNorm scale 1, bias 0 and running statistics (0, 1).  Draws come
+    from ``generator`` (a CPU generator) in module order, so a seed gives
+    the same weights on any device; they are not flax's numbers."""
+    for mod in model.modules():
+        if isinstance(mod, Conv):
+            w = mod.weight
+            std = (2.0 / (w.shape[0] * w.shape[2] * w.shape[3])) ** 0.5
+            w.copy_(torch.empty(w.shape).normal_(0.0, std,
+                                                 generator=generator))
+        elif isinstance(mod, BatchNorm):
+            mod.scale.fill_(1.0)
+            mod.bias.fill_(0.0)
+            mod.mean.fill_(0.0)
+            mod.var.fill_(1.0)
+        elif isinstance(mod, nn.Linear):
+            mod.weight.copy_(torch.empty(mod.weight.shape).normal_(
+                0.0, 1e-3, generator=generator))
+            mod.bias.fill_(0.0)

@@ -14,6 +14,11 @@ with ``<mod>``/``<bn>`` one of ``conv_stem``, ``bn_stem`` or
 ``stageS_blockB/{Conv_i, BatchNorm_i, downsample_conv, downsample_bn}``
 (the same naming ``utils/pretrained.py`` of the JAX package maps torch
 checkpoints onto).
+
+The fused optimizer's state ``{"trace": <params-shaped tree>}`` carries
+the same way, leaf for leaf onto the parameters' ``state_dict`` keys
+(``from_flax_trace`` / ``to_flax_trace``), so a JAX train state and a
+port train state can start from identical numbers.
 """
 
 from __future__ import annotations
@@ -28,6 +33,15 @@ from ..train.checkpoint import flatten_tree
 
 def _key(path) -> str:
     return ".".join(path)
+
+
+def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+    # bfloat16 leaves (bf16 optimizer state) are not a numpy dtype:
+    # widen to float32, which is exact, and narrow back in torch.
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.array(arr.astype(np.float32), order="C")).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, order="C"))
 
 
 def from_flax_variables(variables: Dict[str, Any]
@@ -47,7 +61,7 @@ def from_flax_variables(variables: Dict[str, Any]
                     raise ValueError(f"kernel {'/'.join(path)} of rank "
                                      f"{arr.ndim}")
                 path = path[:-1] + ("weight",)
-            out[_key(path)] = torch.from_numpy(np.array(arr, order="C"))
+            out[_key(path)] = _to_tensor(arr)
     return out
 
 
@@ -57,7 +71,10 @@ def to_flax_variables(state_dict: Dict[str, torch.Tensor]
     variables tree (numpy), e.g. to write with ``train.checkpoint``."""
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
-        arr = value.detach().cpu().numpy()
+        value = value.detach().cpu()
+        if value.dtype == torch.bfloat16:
+            value = value.to(torch.float32)
+        arr = value.numpy()
         path = key.split(".")
         if path[-1] == "weight":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
@@ -76,3 +93,16 @@ def load_flax_variables(model: torch.nn.Module,
     """Copy a flax variables tree into ``model`` in place (strict: every
     key present, every shape equal)."""
     model.load_state_dict(from_flax_variables(variables), strict=True)
+
+
+def from_flax_trace(opt_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The fused optimizer's ``{"trace": tree}`` -> momentum buffers keyed
+    like the parameters in ``state_dict`` (CPU tensors, the trace's own
+    dtype)."""
+    return from_flax_variables({"params": opt_state["trace"]})
+
+
+def to_flax_trace(traces: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of ``from_flax_trace`` (bf16 buffers come back as float32
+    numpy arrays holding the same values)."""
+    return {"trace": to_flax_variables(traces)["params"]}

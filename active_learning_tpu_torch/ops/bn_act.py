@@ -45,34 +45,38 @@ launches = 0
 Coefficients = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 _DTYPES = (torch.bfloat16, torch.float32)
+_CPU_DTYPES = _DTYPES + (torch.float64,)
 
 
 def bn_coefficients(scale: torch.Tensor, bias: torch.Tensor,
                     mean: torch.Tensor, var: torch.Tensor, eps: float,
                     dtype: torch.dtype, fused_stats: bool) -> Coefficients:
-    """Per-channel float32 ``(shift, mul, add)`` of the JAX package's
-    eval BatchNorm for the activation ``dtype``: ``FusedBatchNorm``'s
-    ``x·mul − sub`` when ``fused_stats``, else flax's
-    ``(x − mean)·(rsqrt(var + eps)·scale) + bias``."""
+    """Per-channel ``(shift, mul, add)`` of the JAX package's BatchNorm
+    for the activation ``dtype``: ``FusedBatchNorm``'s ``x·mul − sub``
+    when ``fused_stats``, else flax's ``(x − mean)·(rsqrt(var +
+    eps)·scale) + bias``.  float32 for bf16/f32 activations (float64
+    for float64 ones, which only the CPU route takes)."""
+    acc = torch.promote_types(dtype, torch.float32)
     if fused_stats:
         mul = (scale * torch.rsqrt(var + eps)).to(dtype)
         sub = mean.to(dtype) * mul - bias.to(dtype)
-        return (torch.zeros_like(scale, dtype=torch.float32),
-                mul.to(torch.float32), (-sub).to(torch.float32))
+        return (torch.zeros_like(scale, dtype=acc), mul.to(acc),
+                (-sub).to(acc))
     mul = torch.rsqrt(var + eps) * scale
-    return (mean.to(torch.float32), mul.to(torch.float32),
-            bias.to(torch.float32))
+    return mean.to(acc), mul.to(acc), bias.to(acc)
 
 
 def bn_act_reference(x: torch.Tensor, coeffs: Coefficients,
                      residual: Optional[torch.Tensor] = None,
                      relu: bool = False) -> torch.Tensor:
     """The plain version: the same float32 operations in the same order,
-    one rounding to ``x.dtype`` at the end."""
+    one rounding to ``x.dtype`` at the end (float64 throughout for a
+    float64 ``x``)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
     shift, mul, add = (v.view(1, -1, 1, 1) for v in coeffs)
-    y = (x.to(torch.float32) - shift) * mul + add
+    y = (x.to(acc) - shift) * mul + add
     if residual is not None:
-        y = y + residual.to(torch.float32)
+        y = y + residual.to(acc)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -83,16 +87,21 @@ def _check(x: torch.Tensor, coeffs: Coefficients,
     if x.ndim != 4:
         raise ValueError(f"bn_act: x must be [B, C, H, W], got "
                          f"{tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"bn_act: x must be bf16 or f32, got {x.dtype}")
+    if x.dtype not in (_CPU_DTYPES if x.device.type == "cpu" else _DTYPES):
+        raise TypeError(f"bn_act: x must be bf16 or f32 (or f64 on the "
+                        f"CPU), got {x.dtype} on {x.device}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("bn_act: x must be contiguous in channels_last")
     c = x.shape[1]
+    acc = torch.promote_types(x.dtype, torch.float32)
     for v in coeffs:
-        if (v.shape != (c,) or v.dtype != torch.float32
-                or v.device != x.device or not v.is_contiguous()):
+        if v.dtype != acc:
+            raise TypeError(f"bn_act: coefficients must be {acc} for a "
+                            f"{x.dtype} x, got {v.dtype}")
+        if (v.shape != (c,) or v.device != x.device
+                or not v.is_contiguous()):
             raise ValueError(f"bn_act: coefficients must be contiguous "
-                             f"float32 [{c}] on {x.device}")
+                             f"[{c}] on {x.device}")
     if residual is not None:
         if (residual.shape != x.shape or residual.dtype != x.dtype
                 or residual.device != x.device
@@ -106,8 +115,9 @@ def bn_act(x: torch.Tensor, coeffs: Coefficients,
            residual: Optional[torch.Tensor] = None,
            relu: bool = False) -> torch.Tensor:
     """``relu?((x − shift)·mul + add [+ residual])`` rounded once to
-    ``x.dtype``: the Triton kernel on a CUDA tensor, the plain version
-    on a CPU tensor.  ``x`` (and ``residual``) must be channels-last."""
+    ``x.dtype``: the Triton kernel on a CUDA tensor (bf16 or f32), the
+    plain version on a CPU tensor (float64 too).  ``x`` (and
+    ``residual``) must be channels-last."""
     global launches
     _check(x, coeffs, residual)
     if x.device.type == "cpu":

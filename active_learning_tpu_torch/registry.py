@@ -27,6 +27,13 @@ class Registry(Generic[T]):
             raise KeyError(
                 f"Unknown {self.kind} '{name}'. Known: {known}") from None
 
+    def names(self):
+        return sorted(self._entries)
+
 
 MODELS: Registry = Registry("model")       # name -> model factory
 ARG_POOLS: Registry = Registry("arg_pool")  # name -> {dataset: TrainConfig}
+DATASETS: Registry = Registry("dataset")    # name -> (train, test, al) factory
+STRATEGIES: Registry = Registry("strategy")  # name -> Strategy subclass
+OPTIMIZERS: Registry = Registry("optimizer")  # name -> update rule
+SCHEDULERS: Registry = Registry("scheduler")  # name -> lr_at builder

@@ -389,3 +389,21 @@ def flatten_tree(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
         else:
             out.append((prefix + (k,), v))
     return out
+
+
+def weight_paths(ckpt_root: str, exp_name: str, exp_hash: str,
+                 round_idx: int) -> Dict[str, str]:
+    """best/current/previous checkpoint paths of a round, under
+    ``{ckpt_root}/{exp_name}_{exp_hash}`` (the JAX package's
+    ``train/checkpoint.py:61-80``; ``fit_state`` names the mid-round
+    resume state, which the port does not write yet)."""
+    ckpt_dir = os.path.join(ckpt_root, f"{exp_name}_{exp_hash}")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    return {
+        "best_ckpt": os.path.join(ckpt_dir, f"best_rd_{round_idx}.msgpack"),
+        "previous_ckpt": os.path.join(ckpt_dir,
+                                      f"rd_{round_idx - 1}.msgpack"),
+        "current_ckpt": os.path.join(ckpt_dir, f"rd_{round_idx}.msgpack"),
+        "fit_state": os.path.join(ckpt_dir, f"fit_state_rd_{round_idx}"),
+        "dir": ckpt_dir,
+    }

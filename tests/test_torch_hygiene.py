@@ -4,7 +4,8 @@ JAX package.
 
 Two checks: every port module imports in a fresh interpreter where those
 names are blocked in ``sys.modules``; and an AST scan of every import
-statement in the package and in ``chip_smoke.py``.
+statement in the package and in ``chip_smoke.py``.  The training slice's
+modules are also named one by one.
 """
 
 from __future__ import annotations
@@ -73,3 +74,25 @@ def test_no_forbidden_import_statement(path):
     bad = [name for name in _imports(path)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+# Every module of the training slice, named so that a module that goes
+# missing (or moves out of the package) fails here rather than silently
+# leaving both checks above.
+TRAINING_SLICE = (
+    "__main__", "config", "registry", "pool", "initial_pool",
+    "data/__init__", "data/core", "data/synthetic", "data/augment",
+    "data/pipeline", "ops/__init__", "ops/bn_train", "ops/fused_sgd",
+    "models/resnet", "models/weights", "train/optim", "train/evaluation",
+    "train/trainer", "train/checkpoint", "strategies/__init__",
+    "strategies/base", "strategies/random_sampler",
+    "strategies/uncertainty", "utils/metrics", "utils/tracing",
+    "experiment/arg_pools", "experiment/resume", "experiment/driver",
+    "experiment/cli")
+
+
+@pytest.mark.parametrize("module", TRAINING_SLICE)
+def test_training_slice_module_is_checked(module):
+    path = os.path.join(PKG, *module.split("/")) + ".py"
+    assert path in _port_files()
+    assert not [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN]
