@@ -116,6 +116,10 @@ class TrainConfig:
     fused_optimizer: str = "auto"
     # Momentum-buffer storage dtype on the fused path: "f32" or "bf16".
     optim_state_dtype: str = "f32"
+    # Rows per acquisition-scoring batch; None = the evaluation batch
+    # (Trainer.eval_batch_size).  Scores are per-example statistics under
+    # eval-mode BN, so this changes throughput only.
+    score_batch_size: Optional[int] = None
 
     @property
     def has_pretrained(self) -> bool:
@@ -151,6 +155,17 @@ class ExperimentConfig:
     bn_stats_dtype: Optional[str] = None
     fused_optimizer: Optional[str] = None
     optim_state_dtype: Optional[str] = None
+
+    # Coreset / BADGE scale controls (the reference's parser.py:74-79):
+    # caps on the labeled and unlabeled rows a selection runs over (the
+    # unlabeled cap inherits the labeled cap's unused quota), the number
+    # of random partitions of the Partitioned samplers, and the picks
+    # the deterministic greedy folds per pool pass (1 = sequential; the
+    # exact re-check keeps the picks the same for any value).
+    subset_labeled: Optional[int] = None
+    subset_unlabeled: Optional[int] = None
+    partitions: int = 1
+    kcenter_batch: int = 8
 
     # The reference's fixed seeds (eval split 99, init pool 98) and the
     # run's own.

@@ -8,7 +8,8 @@ because a CPU number reported as the card's would be wrong twice.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -39,3 +40,20 @@ def set_float32_precision(dtype: torch.dtype) -> None:
     if dtype == torch.float32:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Float32 matrix products and convolutions in full float32 for the
+    scope (TF32 off), then the previous settings back: the plain
+    versions of the kernels are yardsticks, and TF32 would round their
+    products to 10 mantissa bits."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -38,8 +38,6 @@ UNSUPPORTED_FLAGS = {
     "--pool_sharding": True, "--pool_backend": True, "--train_feed": True,
     "--feed_workers": True, "--grad_allreduce": True,
     "--scale_batch": True, "--round_pipeline": True,
-    "--subset_labeled": True, "--subset_unlabeled": True,
-    "--partitions": True, "--kcenter_batch": True,
     "--compilation_cache_dir": True, "--vae_latent_dim": True,
     "--vaal_adversary_param": True, "--adversary_param": True,
     "--lr_vae": True, "--lr_discriminator": True, "--num_devices": True,
@@ -101,6 +99,12 @@ def get_parser() -> argparse.ArgumentParser:
                    choices=["auto", "on", "off"])
     p.add_argument("--optim_state_dtype", type=str, default=None,
                    choices=["f32", "bf16"])
+    p.add_argument("--subset_labeled", type=int, default=None)
+    p.add_argument("--subset_unlabeled", type=int, default=None)
+    p.add_argument("--partitions", type=int, default=1)
+    p.add_argument("--kcenter_batch", type=int, default=8,
+                   help="picks the greedy k-center folds per pool pass "
+                        "(the exact re-check keeps the picks of 1)")
     p.add_argument("--run_seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -121,7 +125,10 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
         n_epoch=args.n_epoch, early_stop_patience=args.early_stop_patience,
         dtype=args.dtype, bn_stats_dtype=args.bn_stats_dtype,
         fused_optimizer=args.fused_optimizer,
-        optim_state_dtype=args.optim_state_dtype, run_seed=args.run_seed,
+        optim_state_dtype=args.optim_state_dtype,
+        subset_labeled=args.subset_labeled,
+        subset_unlabeled=args.subset_unlabeled, partitions=args.partitions,
+        kcenter_batch=args.kcenter_batch, run_seed=args.run_seed,
         device=args.device)
 
 

@@ -1,8 +1,10 @@
 """The port's hand-written kernels: kernel A ``prob_stats`` (CUDA),
 kernel B ``bn_act`` (Triton), kernel C ``bn_train`` (CUDA, three device
-functions) and kernel D ``fused_sgd`` (CUDA).  Each wrapper counts its
-launches; ``kernel_launches`` reads them all, so a run can show which
-kernels its path went through."""
+functions), kernel D ``fused_sgd`` (CUDA), kernel E ``kcenter`` (CUDA:
+fold + top-q, fold + D² draw, initial min), kernel F ``boundary_radii``
+(CUDA: radii, pair norms) and kernel G ``badge`` (CUDA).  Each wrapper
+counts its launches; ``kernel_launches`` reads them all, so a run can
+show which kernels its path went through."""
 
 from __future__ import annotations
 
@@ -10,17 +12,28 @@ from typing import Dict
 
 
 def kernel_launches() -> Dict[str, int]:
-    from . import bn_act, bn_train, fused_sgd, prob_stats
+    from . import (badge, bn_act, bn_train, boundary_radii, fused_sgd,
+                   kcenter, prob_stats)
     return {"prob_stats": prob_stats.launches, "bn_act": bn_act.launches,
             "bn_train_stats": bn_train.stats_launches,
             "bn_train_bwd_reduce": bn_train.reduce_launches,
             "bn_train_dx": bn_train.dx_launches,
-            "fused_sgd": fused_sgd.launches}
+            "fused_sgd": fused_sgd.launches,
+            "kcenter_fold_select": kcenter.select_launches,
+            "kcenter_fold_draw": kcenter.draw_launches,
+            "kcenter_min_fold": kcenter.min_fold_launches,
+            "boundary_radii": boundary_radii.radii_launches,
+            "head_pair_norms": boundary_radii.pair_norms_launches,
+            "badge_factors": badge.launches}
 
 
 def reset_kernel_launches() -> None:
-    from . import bn_act, bn_train, fused_sgd, prob_stats
+    from . import (badge, bn_act, bn_train, boundary_radii, fused_sgd,
+                   kcenter, prob_stats)
     prob_stats.launches = 0
     bn_act.launches = 0
     bn_train.reset_launches()
     fused_sgd.launches = 0
+    kcenter.reset_launches()
+    boundary_radii.reset_launches()
+    badge.launches = 0

@@ -65,7 +65,7 @@ class Strategy:
         self.best_epoch = 0
         self.best_perf = 0.0
         self.last_test_acc: Optional[float] = None
-        self._prob_stats_step = scoring.make_prob_stats_step(al_set.view)
+        self._score_steps: Dict[str, scoring.Step] = {}
         # The per-experiment init seed: the one draw the JAX Strategy
         # makes here for its init key.  Each re-init counts up from it.
         self._init_seed = int(self.rng.integers(2 ** 31))
@@ -101,6 +101,9 @@ class Strategy:
 
     def already_labeled_idxs(self, shuffle: bool = False) -> np.ndarray:
         return self.pool.labeled_idxs(shuffle=shuffle, rng=self.rng)
+
+    def already_labeled_mask(self) -> np.ndarray:
+        return self.pool.labeled_mask()
 
     # -- weights ---------------------------------------------------------
 
@@ -200,14 +203,48 @@ class Strategy:
 
     # -- scoring ---------------------------------------------------------
 
-    def collect_scores(self, idxs: np.ndarray,
+    def _score_batch_size(self) -> int:
+        """The scoring batch: ``TrainConfig.score_batch_size`` when set,
+        else the evaluation batch (one policy for both passes)."""
+        explicit = self.train_cfg.score_batch_size
+        if explicit:
+            return int(explicit)
+        return self.trainer.eval_batch_size(self.al_set)
+
+    def _get_score_step(self, kind: str) -> scoring.Step:
+        """One step per scoring kind, built at first use."""
+        if kind not in self._score_steps:
+            view = self.al_set.view
+            if kind == "prob_stats":
+                step = scoring.make_prob_stats_step(view)
+            elif kind == "embed":
+                step = scoring.make_embed_step(view)
+            elif kind == "embed_margin":
+                step = scoring.make_embed_step(view, with_probs=True)
+            elif kind == "mase":
+                step = scoring.make_mase_step(view)
+            elif kind == "badge":
+                step = scoring.make_badge_step(view)
+            elif kind == "badge_pool":
+                step = scoring.make_badge_step(view, pool_512=True)
+            else:
+                raise KeyError(f"unknown scoring kind '{kind}'")
+            self._score_steps[kind] = step
+        return self._score_steps[kind]
+
+    def collect_scores(self, idxs: np.ndarray, kind: str,
                        keys=None) -> Dict[str, np.ndarray]:
-        """The prob-stats step (kernel A) over ``al_set[idxs]`` in
-        fixed-shape batches of the evaluation batch size (the last one
-        padded), model in eval mode; host arrays aligned with ``idxs``."""
+        """The ``kind`` step (``prob_stats``, ``embed``, ``embed_margin``,
+        ``mase``, ``badge``, ``badge_pool``) over ``al_set[idxs]`` in
+        fixed-shape batches of ``_score_batch_size`` rows (the last one
+        padded), model in eval mode; host arrays aligned with ``idxs``,
+        floating outputs in float32."""
         self.model.eval()
-        step = self._prob_stats_step
-        bs = self.trainer.eval_batch_size(self.al_set)
+        step = self._get_score_step(kind)
+        reset = getattr(step, "reset", None)
+        if reset is not None:
+            reset()
+        bs = self._score_batch_size()
         dev = self.trainer.device
         parts: Dict[str, list] = {}
         for b in batch_index_lists(np.asarray(idxs), bs):
@@ -216,6 +253,8 @@ class Strategy:
                        {"image": torch.from_numpy(batch["image"]).to(dev)})
             for k, v in out.items():
                 if keys is None or k in keys:
+                    if v.is_floating_point():
+                        v = v.to(torch.float32)
                     parts.setdefault(k, []).append(v[:len(b)].cpu().numpy())
         return {k: np.concatenate(v) for k, v in parts.items()}
 

@@ -20,7 +20,7 @@ class _ScoreAscendingSampler(Strategy):
         idxs = self.available_query_idxs(shuffle=False)
         if len(idxs) == 0:
             return idxs, 0
-        scores = self.collect_scores(idxs,
+        scores = self.collect_scores(idxs, "prob_stats",
                                      keys=(self.score_key,))[self.score_key]
         budget = int(min(len(idxs), budget))
         order = np.argsort(scores, kind="stable")[:budget]

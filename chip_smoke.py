@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py [--detail PATH]
 
-Drives the port's serving and training paths (``active_learning_tpu_torch``)
-on the card, through the entry points a user calls, and fails (non-zero
-exit) if any phase fails:
+Drives the port's serving, training and acquisition paths
+(``active_learning_tpu_torch``) on the card, through the entry points a
+user calls, and fails (non-zero exit) if any phase fails:
 
 1. Build: every CUDA source of the port with nvcc (all at once), and the
    Triton kernel's variants of the main path.
@@ -54,6 +54,32 @@ exit) if any phase fails:
    the port's ``serve`` model, round-0 indices equal between the two.
 6. One float32 train step of SSLResNet18 (CIFAR stem, B=32) on the card
    against the CPU from the same numpy-seeded weights (TF32 off).
+7. The geometry samplers' kernels against their plain versions at the
+   main path's shapes: kernel E (``ops/kcenter``, CUDA: fold + top-q,
+   fold + D² draw, initial min) on one factor [13,000, 2048] and the
+   pooled BADGE factors [13,000, 16] + [13,000, 32] (a partition of the
+   ImageNet sweep) and on [131,072, 2048] (its whole pool, bucketed),
+   with the Threefry bits bit-equal; kernel F (``ops/boundary_radii``,
+   CUDA) on [256, 2048] embeddings against a [1000, 2048] head; kernel
+   G (``ops/badge``, CUDA) on [256, 1000] logits and [256, 2048]
+   embeddings, pooled and not.  Each timed beside its plain version,
+   its bound and, for E, the ``torch.matmul`` + ``torch.topk`` form
+   (for F, ``torch.addmm`` of the logits as a labelled reference).
+8. Each of MASE, BASE, PartitionedCoreset (2 partitions) and
+   PartitionedBADGE (2 partitions, pooled) ``query``s full-width
+   SSLResNet50 (1000 classes, bf16, seeded) over 2,048 synthetic
+   224x224 rows, launch counters zeroed before each and read after;
+   the mase and badge steps in float32 on the card against the CPU.
+9. ``kcenter_greedy`` at the sweep's pool size: seeded [130,000, 2048]
+   float32 factors, 50,000 labeled, budget 10,000 — unpartitioned
+   (q = 8), 10 partitions of 13,000 rows (1,000 picks each), and the
+   partitions randomized over pooled BADGE factors; wall time, pool
+   passes and host syncs of each, peak device memory, and the picks
+   held against the plain version (the whole unpartitioned run,
+   partition 0 of the others).
+10. The CLI on the card with BASESampler, PartitionedCoresetSampler and
+    PartitionedBADGESampler (--partitions 2; SSLResNet18, synthetic, 2
+    rounds).
 
 Prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -1079,6 +1105,808 @@ def check_train_step_f32_against_cpu(devices=("cuda", "cpu")):
     return {"loss_rel": rel, "update_rel": upd, "grad_norm": [gc, gp]}
 
 
+# -- phase 7: the geometry samplers' kernels against their plain versions ----
+
+def _bound(nbytes: float, flops: float) -> dict:
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return {"bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def _kc_pool(dev, n, dims, seed, n_labeled):
+    """Seeded factors on the card, their squared norms, the min distance
+    to ``n_labeled`` random rows (plain version) and the selectable mask."""
+    from active_learning_tpu_torch.ops import kcenter as kc
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    factors = tuple(torch.randn(n, d, device=dev, generator=g)
+                    for d in dims)
+    sqn = None
+    for f in factors:
+        sq = (f * f).sum(dim=1)
+        sqn = sq if sqn is None else sqn * sq
+    perm = torch.randperm(n, device=dev, generator=g)
+    labeled, rest = perm[:n_labeled], perm[n_labeled:]
+    min_dist = torch.full((n,), float("inf"), device=dev)
+    for i in range(0, n_labeled, 1024):
+        kc.fold_reference(factors, sqn, min_dist, labeled[i:i + 1024])
+    sel = torch.ones(n, device=dev)
+    sel[labeled] = 0.0
+    return factors, sqn, min_dist, sel, labeled, rest
+
+
+def _check_fold_select(factors, sqn, md0, sel0, centers, q, where, detail,
+                       path="select"):
+    """Kernel E's fold + top-q against its plain version: min_dist within
+    kc.fold_tolerance, selectable equal, the kernel's top-q exactly the
+    top-q of its own min_dist, and where a pick differs from the plain
+    one, the two rows' plain distances within twice the tolerance (the
+    gap is printed).  Returns the max abs error of min_dist."""
+    from active_learning_tpu_torch.ops import kcenter as kc
+
+    depth = sum(f.shape[1] for f in factors)
+    c_max = float(sqn[centers].max()) if centers.numel() else 0.0
+    tol = kc.fold_tolerance(sqn, c_max, depth)
+    md_k, sel_k, md_p, sel_p = md0.clone(), sel0.clone(), md0.clone(), \
+        sel0.clone()
+    vk, ik = kc.fold_select(factors, sqn, md_k, sel_k, centers, q)
+    vp, ip = kc.fold_select_reference(factors, sqn, md_p, sel_p, centers, q)
+    torch.cuda.synchronize()
+    err = (md_k - md_p).abs()
+    if not torch.equal(sel_k, sel_p) or bool((err > tol).any()):
+        raise AssertionError(f"kcenter fold at {where}: max err "
+                             f"{err.max().item()} against tolerance "
+                             f"{tol.max().item()}")
+    own_v, own_i = kc.top_q(torch.where(
+        sel_k > 0, md_k, torch.full_like(md_k, float("-inf"))), q)
+    if not (torch.equal(vk, own_v) and torch.equal(ik, own_i)):
+        raise AssertionError(f"kcenter top-{q} at {where} is not the top-q "
+                             "of the kernel's own distances")
+    differ = (ik != ip).nonzero()[:, 0].tolist()
+    for r in differ:
+        gap = abs(float(md_p[ik[r]]) - float(vp[r]))
+        log(f"kcenter top-{q} at {where}: rank {r} kernel row {int(ik[r])} "
+            f"plain row {int(ip[r])}, distance gap {gap:.3g} (bound "
+            f"{2 * tol.max().item():.3g})")
+        if gap > 2 * tol.max().item():
+            raise AssertionError("kcenter pick differs beyond the bound")
+    detail.append({"kernel": "kcenter_fold_select", "path": path,
+                   "where": where, "q": q,
+                   "max_abs_err": err.max().item(),
+                   "tolerance_max": tol.max().item(),
+                   "picks_differ": len(differ)})
+    return err.max().item()
+
+
+def _check_min_fold(factors, sqn, centers, where, detail, path="select"):
+    from active_learning_tpu_torch.ops import kcenter as kc
+
+    n = sqn.shape[0]
+    md_k = torch.full((n,), float("inf"), device=sqn.device)
+    md_p = md_k.clone()
+    kc.min_fold(factors, sqn, md_k, centers)
+    kc.fold_reference(factors, sqn, md_p, centers)
+    torch.cuda.synchronize()
+    tol = kc.fold_tolerance(sqn, float(sqn[centers].max()),
+                            sum(f.shape[1] for f in factors))
+    err = (md_k - md_p).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"kcenter min_fold at {where}: max err "
+                             f"{err.max().item()}")
+    detail.append({"kernel": "kcenter_min_fold", "path": path, "where": where,
+                   "centers": centers.numel(),
+                   "max_abs_err": err.max().item(),
+                   "tolerance_max": tol.max().item()})
+    return err.max().item()
+
+
+def _check_fold_draw(factors, sqn, md0, sel0, steps, seed, where, detail,
+                     path="select"):
+    """Kernel E's D² draw: Threefry bits bit-equal to utils/threefry,
+    Gumbel noise within one ulp of max(1, |g|), the same rows drawn over
+    ``steps`` steps, their weights within the fold tolerance."""
+    from active_learning_tpu_torch.ops import kcenter as kc
+    from active_learning_tpu_torch.utils import threefry
+
+    dev, n = sqn.device, sqn.shape[0]
+    keys = threefry.split(threefry.prng_key(seed), steps)
+    key0 = (int(keys[0, 0]), int(keys[0, 1]))
+    bits, gum = kc.random_bits(key0, n, dev)
+    if not torch.equal(bits, threefry.random_bits(key0, n, dev)):
+        raise AssertionError(f"kcenter Threefry bits differ at {where}")
+    g_ref = threefry.gumbel(key0, n, dev)
+    g_err = (gum - g_ref).abs()
+    if bool((g_err > torch.clamp(g_ref.abs(), min=1.0) * 2.0 ** -23).any()):
+        raise AssertionError(f"kcenter Gumbel noise at {where}: max err "
+                             f"{g_err.max().item()}")
+    md_k, sel_k, md_p, sel_p = md0.clone(), sel0.clone(), md0.clone(), \
+        sel0.clone()
+    picks = torch.zeros(steps, dtype=torch.int64, device=dev)
+    vals = torch.zeros(steps, device=dev)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    tol = kc.fold_tolerance(sqn, float(sqn.max()),
+                            sum(f.shape[1] for f in factors)).max().item()
+    err = 0.0
+    for i in range(steps):
+        key = (int(keys[i, 0]), int(keys[i, 1]))
+        kc.fold_draw(factors, sqn, md_k, sel_k, picks[i - 1:i] if i else none,
+                     key, vals[i:i + 1], picks[i:i + 1])
+        prev = picks[i - 1:i].clone() if i else none
+        vp, ip = kc.fold_draw_reference(factors, sqn, md_p, sel_p, prev, key)
+        if int(ip) != int(picks[i]):
+            raise AssertionError(f"kcenter draw at {where}, step {i}: kernel "
+                                 f"row {int(picks[i])}, plain row {int(ip)}")
+        err = max(err, abs(float(vp) - float(vals[i])))
+    if err > tol:
+        raise AssertionError(f"kcenter draw weights at {where}: err {err}")
+    detail.append({"kernel": "kcenter_fold_draw", "path": path, "where": where,
+                   "steps": steps, "gumbel_max_err": g_err.max().item(),
+                   "weight_max_err": err})
+    return max(err, g_err.max().item())
+
+
+def check_kcenter(dev, detail):
+    """Kernel E at the main path's shapes: one factor [13,000, 2048] (a
+    partition of the ImageNet sweep, 5,000 labeled), the pooled BADGE
+    factors [13,000, 16] + [13,000, 32], and the unpartitioned pool
+    [131,072, 2048] (130,000 rows bucketed, 50,000 labeled) for the
+    fold.  Then timings at 131,072 x 2048, q = 8."""
+    from active_learning_tpu_torch.ops import kcenter as kc
+
+    err = 0.0
+    for n, dims, n_lab in ((13000, (2048,), 5000), (13000, (16, 32), 5000),
+                           (131072, (2048,), 50000)):
+        where = f"N={n} D={'+'.join(map(str, dims))}"
+        factors, sqn, md0, sel0, labeled, rest = _kc_pool(dev, n, dims, n,
+                                                          n_lab)
+        for q in (1, 8):
+            err = max(err, _check_fold_select(factors, sqn, md0, sel0,
+                                              rest[:q], q, where, detail))
+        err = max(err, _check_min_fold(factors, sqn, labeled[:1024], where,
+                                       detail))
+        if n == 13000:
+            err = max(err, _check_fold_draw(factors, sqn, md0, sel0, 20, n,
+                                            where, detail))
+        del factors, sqn, md0, sel0
+        torch.cuda.empty_cache()
+    log(f"kernel E checks passed: max abs err {err:.3g}")
+
+    # Timings at the unpartitioned sweep's pool.
+    n, d, q = 131072, 2048, 8
+    factors, sqn, md, sel, labeled, rest = _kc_pool(dev, n, (d,), 7, 50000)
+    centers = rest[:q].clone()
+    ms = cuda_ms(lambda: kc.fold_select(factors, sqn, md, sel, centers, q),
+                 reps=20)
+    plain = cuda_ms(lambda: kc.fold_select_reference(factors, sqn, md, sel,
+                                                     centers, q), reps=5)
+    x = factors[0]
+    ninf = torch.full_like(md, float("-inf"))
+
+    def library():
+        d_ = sqn[:, None] + sqn[centers][None, :] - 2.0 * (x @ x[centers].T)
+        torch.minimum(md, d_.min(dim=1).values, out=md)
+        return torch.topk(torch.where(sel > 0, md, ninf), q)
+
+    from active_learning_tpu_torch.device import full_float32
+    with full_float32():
+        lib = cuda_ms(library, reps=20)
+    times = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+             **_bound(n * (d + 4) * 4.0, 2.0 * q * n * d)}
+    chunk = labeled[:1024].clone()
+    extra = {
+        "min_fold_1024_ms": cuda_ms(lambda: kc.min_fold(
+            factors, sqn, md, chunk), reps=5),
+        "min_fold_1024_plain_ms": cuda_ms(lambda: kc.fold_reference(
+            factors, sqn, md, chunk), reps=5),
+        "min_fold_1024_bound": _bound(n * (d + 2) * 4.0,
+                                      2.0 * 1024 * n * d)}
+    del factors, sqn, md, sel, x
+    torch.cuda.empty_cache()
+    a_f, sqn, md, sel, _, _ = _kc_pool(dev, 13000, (16, 32), 8, 5000)
+    out_v = torch.zeros(1, device=dev)
+    out_i = torch.zeros(1, dtype=torch.int64, device=dev)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    extra["draw_13000_pooled_ms"] = cuda_ms(lambda: kc.fold_draw(
+        a_f, sqn, md, sel, none, (1, 2), out_v, out_i), reps=20)
+    extra["draw_13000_pooled_plain_ms"] = cuda_ms(
+        lambda: kc.fold_draw_reference(a_f, sqn, md, sel, none, (1, 2)),
+        reps=20)
+    del a_f, sqn, md, sel
+    torch.cuda.empty_cache()
+    detail.append({"kernel": "kcenter", "timings": {**times, **extra}})
+    log(f"kernel E at N={n} D={d} q={q}: {ms:.3f} ms (plain {plain:.3f}, "
+        f"library {lib:.3f}, bound {times['bound_ms']:.3f} by "
+        f"{times['bound_by']}); {extra}")
+    return err, times
+
+
+def _check_radii(emb, kernel, bias, where, detail, path):
+    """Kernel F against its plain version on these inputs: pair norms
+    within 2 D eps of themselves, predictions equal or their logits within
+    br.logits_tolerance, radii within br.radii_tolerance, +inf at the same
+    entries.  Returns (max abs err, the kernel's pair norms)."""
+    from active_learning_tpu_torch.ops import boundary_radii as br
+
+    emb, kernel, bias = (t.to(torch.float32) for t in (emb, kernel, bias))
+    d = emb.shape[1]
+    norms_k = br.head_pair_norms(kernel)
+    norms_p = br.head_pair_norms_reference(kernel)
+    got = br.boundary_radii(emb, kernel, bias, norms_p)
+    ref = br.boundary_radii_reference(emb, kernel, bias, norms_p)
+    torch.cuda.synchronize()
+    n_err = (norms_k - norms_p).abs()
+    if bool((n_err > 2 * d * 2.0 ** -23 * norms_p + 1e-30).any()):
+        raise AssertionError(f"head_pair_norms: max err {n_err.max()}")
+    same = got["pred"] == ref["pred"]
+    if not bool(same.all()):
+        from active_learning_tpu_torch.device import full_float32
+        with full_float32():
+            logits = emb @ kernel + bias
+        rows = (~same).nonzero()[:, 0]
+        gap = (logits[rows, got["pred"][rows].long()]
+               - logits[rows, ref["pred"][rows].long()]).abs()
+        log(f"boundary_radii: {len(rows)} predictions differ, logit gaps "
+            f"{gap.tolist()}")
+        if bool((gap > br.logits_tolerance(emb, kernel)[rows]).any()):
+            raise AssertionError("boundary_radii predictions differ beyond "
+                                 "the bound")
+    rk, rp = got["radii"][same], ref["radii"][same]
+    fin = torch.isfinite(rp)
+    tol = br.radii_tolerance(emb[same], rp.where(fin, torch.zeros_like(rp)))
+    r_err = (rk - rp).abs().where(fin, torch.zeros_like(rp))
+    if not torch.equal(torch.isinf(rk), torch.isinf(rp)) or \
+            bool((r_err > tol).any()):
+        raise AssertionError(f"boundary_radii: max err {r_err.max()}")
+    mm_err = (got["min_margin"][same] - ref["min_margin"][same]).abs()
+    if bool((mm_err > tol.max(dim=1).values).any()):
+        raise AssertionError("boundary_radii min_margin differs")
+    err = max(r_err.max().item(), n_err.max().item())
+    detail.append({"kernel": "boundary_radii", "path": path, "where": where,
+                   "max_abs_err": err, "preds_differ": int((~same).sum())})
+    return err, norms_k
+
+
+def check_boundary_radii(dev, detail):
+    """Kernel F at MASE's full-width shapes: [256, 2048] embeddings
+    against a [1000, 2048] head; the pair norms of that head."""
+    from active_learning_tpu_torch.ops import boundary_radii as br
+
+    b, c, d = 256, 1000, 2048
+    g = torch.Generator(device=dev).manual_seed(3)
+    emb = torch.randn(b, d, device=dev, generator=g)
+    kernel = torch.randn(d, c, device=dev, generator=g) * 0.05
+    bias = torch.randn(c, device=dev, generator=g) * 0.1
+    err, norms_k = _check_radii(emb, kernel, bias, f"B={b} C={c} D={d}",
+                                detail, "query")
+    ms = cuda_ms(lambda: br.boundary_radii(emb, kernel, bias, norms_k))
+    plain = cuda_ms(lambda: br.boundary_radii_reference(emb, kernel, bias,
+                                                        norms_k), reps=5)
+    from active_learning_tpu_torch.device import full_float32
+    with full_float32():
+        lib = cuda_ms(lambda: torch.addmm(bias, emb, kernel))
+    norms_ms = cuda_ms(lambda: br.head_pair_norms(kernel), reps=10)
+    norms_plain = cuda_ms(lambda: br.head_pair_norms_reference(kernel),
+                          reps=3)
+    times = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+             "library_call": "torch.addmm(bias, e, W) (the logits only: "
+                             "no call forms the weight difference first; "
+                             "a labelled reference)",
+             **_bound(4.0 * (b * d + c * d + 2 * c + 2 * b * c + 2 * b),
+                      5.0 * b * c * d),
+             "pair_norms_ms": norms_ms, "pair_norms_plain_ms": norms_plain,
+             "pair_norms_bound": _bound(4.0 * (c * d + c * c),
+                                        3.0 * c * c * d)}
+    detail.append({"kernel": "boundary_radii", "timings": times})
+    log(f"kernel F checks passed (max err {err:.3g}): {ms:.3f} ms (plain "
+        f"{plain:.3f}, addmm {lib:.3f}, bound {times['bound_ms']:.4f} by "
+        f"{times['bound_by']}); pair norms {norms_ms:.3f} ms")
+    return err, times
+
+
+def _check_badge(logits, emb, where, detail, path):
+    """Kernel G against its plain version on these inputs, pooled and
+    unpooled: within 1e-6 + 1e-5 |ref|.  Returns the max abs err."""
+    from active_learning_tpu_torch.ops import badge as bg
+
+    err = 0.0
+    for pool in (False, True):
+        got = bg.badge_factors(logits, emb, pool)
+        ref = bg.badge_factors_reference(logits, emb, pool)
+        torch.cuda.synchronize()
+        for k in ("grad_a", "grad_e"):
+            e = (got[k] - ref[k]).abs()
+            if got[k].shape != ref[k].shape or \
+                    bool((e > 1e-6 + 1e-5 * ref[k].abs()).any()):
+                raise AssertionError(f"badge {k} pool={pool} at {path} "
+                                     f"{where}: max err {e.max().item()}")
+            err = max(err, e.max().item())
+        detail.append({"kernel": "badge", "path": path, "where": where,
+                       "pool_512": pool, "shapes": [list(got[k].shape)
+                                                    for k in got],
+                       "max_abs_err": err})
+    return err
+
+
+def check_badge(dev, detail):
+    """Kernel G at BADGE's full-width shapes: [256, 1000] logits and
+    [256, 2048] embeddings, with and without the 512-d pooling."""
+    from active_learning_tpu_torch.ops import badge as bg
+
+    b, c, d = 256, 1000, 2048
+    g = torch.Generator(device=dev).manual_seed(4)
+    logits = torch.randn(b, c, device=dev, generator=g) * 3.0
+    emb = torch.randn(b, d, device=dev, generator=g)
+    err = _check_badge(logits, emb, f"B={b} C={c} D={d}", detail, "query")
+    ms = cuda_ms(lambda: bg.badge_factors(logits, emb, True))
+    plain = cuda_ms(lambda: bg.badge_factors_reference(logits, emb, True))
+    flat_ms = cuda_ms(lambda: bg.badge_factors(logits, emb, False))
+    times = {"ms": ms, "plain_ms": plain, "library_ms": None,
+             **_bound(4.0 * (b * c + b * d + b * (16 + 32)),
+                      b * (6.0 * c + 2.0 * d)),
+             "unpooled_ms": flat_ms,
+             "unpooled_bound": _bound(4.0 * 2 * b * c, 6.0 * b * c)}
+    detail.append({"kernel": "badge", "timings": times})
+    log(f"kernel G checks passed (max err {err:.3g}): pooled {ms:.4f} ms "
+        f"(plain {plain:.4f}, bound {times['bound_ms']:.5f}), unpooled "
+        f"{flat_ms:.4f} ms")
+    return err, times
+
+
+# -- phase 8: full-width scoring through the strategies -----------------------
+
+QUERY_SAMPLERS = (("MASESampler", {}), ("BASESampler", {}),
+                  ("PartitionedCoresetSampler", {"partitions": 2}),
+                  ("PartitionedBADGESampler", {"partitions": 2}))
+QUERY_KERNELS = {
+    "MASESampler": ("boundary_radii", "head_pair_norms", "bn_act"),
+    "BASESampler": ("boundary_radii", "head_pair_norms", "bn_act"),
+    "PartitionedCoresetSampler": ("kcenter_fold_select", "kcenter_min_fold",
+                                  "bn_act"),
+    "PartitionedBADGESampler": ("badge_factors", "kcenter_fold_draw",
+                                "kcenter_min_fold", "bn_act")}
+
+
+def run_query_path(dev, n_rows: int = 2048, budget: int = 200):
+    """Each geometry sampler's ``query`` on full-width SSLResNet50 (1000
+    classes, bf16, seeded weights) over a synthetic pool of ``n_rows``
+    224x224 rows, the default/imagenet arg pool's scoring batch, the
+    launch counters zeroed before each query and read after.  Kernels
+    E, F and G record their inputs meanwhile (the first call of each
+    shape: a device copy each); returns (results, recorded inputs)."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.config import ExperimentConfig
+    from active_learning_tpu_torch.data.synthetic import get_data_synthetic
+    from active_learning_tpu_torch.experiment import driver
+    from active_learning_tpu_torch.experiment.arg_pools import \
+        get_train_config
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.weights import load_flax_variables
+
+    t0 = time.perf_counter()
+    data = get_data_synthetic(n_train=n_rows, n_test=8, image_size=224,
+                              num_classes=1000, seed=SEED)
+    model = get_network("imagenet", "SSLResNet50", device=dev)
+    load_flax_variables(model, random_variables(SEED))
+    train_cfg = get_train_config("default", "imagenet")
+    log(f"query path set-up (pool of {n_rows} rows, model): "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    with recording_kernel_inputs() as calls:
+        for name, kw in QUERY_SAMPLERS:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_q_") as tmp:
+                cfg = ExperimentConfig(dataset="synthetic", strategy=name,
+                                       round_budget=budget, device=dev.type,
+                                       ckpt_path=tmp, log_dir=tmp, **kw)
+                strat = driver.build_experiment(
+                    cfg, data=data, train_cfg=train_cfg, model=model)
+                avail = strat.available_query_mask()
+                labeled = strat.already_labeled_mask()
+                torch.cuda.synchronize()
+                ops.reset_kernel_launches()
+                t0 = time.perf_counter()
+                picks, cost = strat.query(budget)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = ops.kernel_launches()
+            picks = np.asarray(picks)
+            if not (cost == budget == len(picks) == np.unique(picks).size
+                    and avail[picks].all() and not labeled[picks].any()):
+                raise AssertionError(
+                    f"{name} query: {cost} picks, distinct "
+                    f"{np.unique(picks).size}, all available "
+                    f"{bool(avail[picks].all())}")
+            missing = [k for k in QUERY_KERNELS[name] if launches[k] < 1]
+            if missing:
+                raise AssertionError(f"{name} query never launched "
+                                     f"{missing}: {launches}")
+            nz = {k: v for k, v in launches.items() if v}
+            log(f"{name} query: {budget} picks over {int(avail.sum())} rows "
+                f"in {wall:.2f} s; launches {nz}")
+            out[name] = {"wall_s": wall, "launches": launches,
+                         "scored_rows": int(avail.sum())}
+    del model, data
+    torch.cuda.empty_cache()
+    return out, calls
+
+
+def check_geometry_f32_against_cpu(view, rows):
+    """The mase and pooled-badge steps of full-width SSLResNet50 in
+    float32 on the card (TF32 off) and on the CPU, same seeded weights
+    and rows: predictions equal, finite radii within 1e-3 of each row's
+    largest, BADGE factors within 1e-3 of each factor's largest value
+    (the whole network in another order on each side)."""
+    from active_learning_tpu_torch.device import set_float32_precision
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.weights import load_flax_variables
+    from active_learning_tpu_torch.strategies import scoring
+
+    set_float32_precision(torch.float32)
+    variables = random_variables(SEED)
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = get_network("imagenet", "SSLResNet50", dtype="float32",
+                            device=device)
+        load_flax_variables(model, variables)
+        model.eval()
+        batch = {"image": torch.from_numpy(rows).to(device)}
+        mase = scoring.make_mase_step(view)(model, batch)
+        badge = scoring.make_badge_step(view, pool_512=True)(model, batch)
+        outs.append({k: v.cpu() for k, v in {**mase, **badge}.items()})
+    card, cpu = outs
+    if not torch.equal(card["pred"], cpu["pred"]):
+        raise AssertionError("f32 mase predictions differ card vs CPU")
+    fin = torch.isfinite(cpu["radii"])
+    scale = cpu["radii"].where(fin, torch.zeros(())).abs().max(dim=1).values
+    r_err = (card["radii"] - cpu["radii"]).abs().where(fin, torch.zeros(()))
+    if not torch.equal(fin, torch.isfinite(card["radii"])) or \
+            bool((r_err > 1e-3 * scale[:, None]).any()):
+        raise AssertionError(f"f32 radii card vs CPU: {r_err.max()}")
+    errs = {}
+    for k in ("grad_a", "grad_e"):
+        e = (card[k] - cpu[k]).abs().max().item()
+        errs[k] = e
+        if e > 1e-3 * cpu[k].abs().max().item():
+            raise AssertionError(f"f32 {k} card vs CPU: {e}")
+    log(f"f32 mase/badge steps card vs CPU: preds equal, radii max err "
+        f"{r_err.max().item():.3g}, {errs}")
+    return {"radii_max_err": r_err.max().item(), **errs}
+
+
+# -- phase 9: selection at the sweep's pool size ------------------------------
+
+def _plain_kcenter():
+    """Within the context, kcenter_greedy runs kernel E's plain versions
+    on the card (the comparison run; no kernel E launch)."""
+    import contextlib
+
+    from active_learning_tpu_torch.ops import kcenter as kc
+
+    def fold_select(factors, sqn, min_dist, selectable, centers, q,
+                    out_vals=None, out_idx=None):
+        vals, idx = kc.fold_select_reference(factors, sqn, min_dist,
+                                             selectable, centers, q)
+        if out_vals is None:
+            return vals, idx
+        out_vals.copy_(vals)
+        out_idx.copy_(idx)
+        return out_vals, out_idx
+
+    def fold_draw(factors, sqn, min_dist, selectable, centers, key, out_val,
+                  out_idx):
+        val, idx = kc.fold_draw_reference(factors, sqn, min_dist, selectable,
+                                          centers, key)
+        out_val.copy_(val.reshape(1))
+        out_idx.copy_(idx.reshape(1))
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = (kc.fold_select, kc.fold_draw, kc.min_fold)
+        kc.fold_select, kc.fold_draw, kc.min_fold = (
+            fold_select, fold_draw, kc.fold_reference)
+        try:
+            yield
+        finally:
+            kc.fold_select, kc.fold_draw, kc.min_fold = saved
+
+    return swapped()
+
+
+def _hold_picks(factors, labeled_mask, got, want, where):
+    """Kernel picks against plain picks.  At the first difference, the
+    step, both rows and the gap between their float64 distances to the
+    labeled rows and earlier picks are printed; it fails unless the gap
+    is within twice kc.fold_tolerance.  Returns the differing step or
+    None."""
+    from active_learning_tpu_torch.ops import kcenter as kc
+
+    if np.array_equal(got, want):
+        return None
+    s = int(np.flatnonzero(got != want)[0])
+    centers = np.concatenate([np.flatnonzero(labeled_mask), got[:s]])
+    f64 = [f.double() for f in factors]
+    c_idx = torch.as_tensor(centers, device=factors[0].device)
+    rows = torch.as_tensor([int(got[s]), int(want[s])],
+                           device=factors[0].device)
+    dots, sq_r, sq_c = None, None, None
+    for f in f64:
+        dd = f[rows] @ f[c_idx].T
+        dots = dd if dots is None else dots * dd
+        r2, c2 = (f[rows] ** 2).sum(1), (f[c_idx] ** 2).sum(1)
+        sq_r = r2 if sq_r is None else sq_r * r2
+        sq_c = c2 if sq_c is None else sq_c * c2
+    dist = (sq_r[:, None] + sq_c[None, :] - 2 * dots).min(dim=1).values
+    gap = abs(float(dist[0] - dist[1]))
+    sqn = sq_r.float()
+    bound = 2 * kc.fold_tolerance(sqn, float(sq_c.max()),
+                                  sum(f.shape[1] for f in factors)).max()
+    log(f"{where}: picks differ first at step {s}: kernel row {int(got[s])}"
+        f", plain row {int(want[s])}, distance gap {gap:.4g} (bound "
+        f"{float(bound):.4g})")
+    if gap > float(bound):
+        raise AssertionError(f"{where}: a pick differs beyond the bound")
+    return s
+
+
+def run_selection_path(dev, n=130000, d=2048, n_lab=50000, budget=10000,
+                       parts=10):
+    """kcenter_greedy at the ImageNet sweep's scale (gen_jobs.py: 50,000
+    labeled + 80,000 unlabeled rows, budget 10,000): seeded [130,000,
+    2048] float32 factors on the card, (a) unpartitioned with q = 8,
+    (b) 10 partitions of 13,000 rows with 1,000 picks each, (c) the same
+    partitions randomized over pooled BADGE factors [., 16] + [., 32].
+    The launch counters are zeroed before the kernel runs and read after;
+    the plain version then re-runs (a) whole and partition 0 of (b) and
+    (c) for the pick comparison."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.strategies import kcenter as skc
+
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randn(n, d, device=dev, generator=g)
+    a = torch.randn(n, 16, device=dev, generator=g)
+    e = torch.randn(n, 32, device=dev, generator=g)
+    rng = np.random.default_rng(SEED)
+    labeled = np.zeros(n, dtype=bool)
+    labeled[rng.choice(n, n_lab, replace=False)] = True
+    order = rng.permutation(n)
+    lab_rows, unl_rows = order[labeled[order]], order[~labeled[order]]
+    part_rows = [np.concatenate([lab_rows[i::parts], unl_rows[i::parts]])
+                 for i in range(parts)]
+    torch.cuda.synchronize()
+
+    def run(mode, plain=False, only=None):
+        picks, scans = [], []
+        t0 = time.perf_counter()
+        if mode == "unpartitioned":
+            p = skc.kcenter_greedy((x,), labeled, budget, batch_q=8,
+                                   rng=np.random.default_rng(SEED))
+            picks.append(p)
+            scans.append(dict(skc.LAST_SCAN))
+        else:
+            for i, rows in enumerate(part_rows):
+                if only is not None and i != only:
+                    continue
+                idx = torch.as_tensor(rows, device=dev)
+                fac = (x[idx],) if mode == "partitioned" else (a[idx],
+                                                                e[idx])
+                p = skc.kcenter_greedy(
+                    fac, labeled[rows], budget // parts, batch_q=8,
+                    randomize=mode == "randomized",
+                    rng=np.random.default_rng(SEED + i))
+                picks.append(p)
+                scans.append(dict(skc.LAST_SCAN))
+        torch.cuda.synchronize()
+        return picks, scans, time.perf_counter() - t0
+
+    out, launches = {}, {}
+    for mode in ("unpartitioned", "partitioned", "randomized"):
+        ops.reset_kernel_launches()
+        picks, scans, wall = run(mode)
+        launches[mode] = ops.kernel_launches()
+        for p, rows in zip(picks, [None] if mode == "unpartitioned"
+                           else part_rows):
+            lab = labeled if rows is None else labeled[rows]
+            want = budget if rows is None else budget // parts
+            if len(p) != want or np.unique(p).size != want or lab[p].any():
+                raise AssertionError(f"selection {mode}: invalid picks")
+        out[mode] = {"wall_s": wall,
+                     "pool_passes": sum(s["pool_passes"] for s in scans),
+                     "host_syncs": sum(s["host_syncs"] for s in scans),
+                     "picks": int(sum(len(p) for p in picks))}
+        log(f"selection {mode}: {out[mode]['picks']} picks in {wall:.2f} s, "
+            f"{out[mode]['pool_passes']} pool passes, "
+            f"{out[mode]['host_syncs']} host syncs; launches "
+            f"{ {k: v for k, v in launches[mode].items() if v} }")
+        with _plain_kcenter():
+            plain, _, plain_wall = run(mode, only=0)
+        out[mode]["plain_wall_s_held"] = plain_wall
+        if mode == "unpartitioned":
+            out[mode]["first_difference"] = _hold_picks(
+                (x,), labeled, picks[0], plain[0], "selection unpartitioned")
+        else:
+            rows = part_rows[0]
+            idx = torch.as_tensor(rows, device=dev)
+            fac = (x[idx],) if mode == "partitioned" else (a[idx], e[idx])
+            if mode == "randomized" and not np.array_equal(picks[0],
+                                                           plain[0]):
+                s = int(np.flatnonzero(picks[0] != plain[0])[0])
+                raise AssertionError(f"randomized selection, partition 0, "
+                                     f"step {s}: kernel row "
+                                     f"{picks[0][s]}, plain {plain[0][s]}")
+            out[mode]["first_difference"] = _hold_picks(
+                fac, labeled[rows], picks[0], plain[0],
+                f"selection {mode} partition 0")
+        log(f"selection {mode}: plain version on the card held "
+            f"({'whole run' if mode == 'unpartitioned' else 'partition 0'}) "
+            f"in {plain_wall:.2f} s, first difference "
+            f"{out[mode]['first_difference']}")
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"selection peak device memory: "
+        f"{out['peak_device_bytes'] / 2 ** 30:.2f} GiB")
+    del x, a, e
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+# -- phase 10: the geometry samplers through the CLI on the card --------------
+
+CLI_GEOMETRY = (("BASESampler", []),
+                ("PartitionedCoresetSampler", ["--partitions", "2"]),
+                ("PartitionedBADGESampler", ["--partitions", "2"]))
+
+
+def _sig(args):
+    """The shapes (and the ints and bools) of a kernel call's arguments."""
+    def one(x, top):
+        if isinstance(x, torch.Tensor):
+            return tuple(x.shape)
+        if isinstance(x, (tuple, list)):
+            return tuple(one(v, False) for v in x)
+        return x if top and isinstance(x, (bool, int)) else None
+    return tuple(one(a, True) for a in args)
+
+
+def _copy(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_copy(v) for v in x)
+    return x
+
+
+def recording_kernel_inputs():
+    """Within the context, kernels E, F and G's entry points as the
+    strategies call them keep a copy of their inputs, taken before the
+    call (E updates min_dist and selectable in place), for the first
+    call of each distinct argument shape; launches are counted as
+    always.  Yields {entry point: [args, ...]}."""
+    import contextlib
+
+    from active_learning_tpu_torch.ops import kcenter as kc
+    from active_learning_tpu_torch.strategies import scoring
+
+    targets = [(kc, n) for n in ("fold_select", "fold_draw", "min_fold")] + \
+        [(scoring, n) for n in ("badge_factors", "boundary_radii",
+                                "head_pair_norms")]
+    calls = {n: [] for _, n in targets}
+    seen = set()
+
+    def wrap(name, fn):
+        def recorded(*args):
+            key = (name, _sig(args))
+            if key not in seen:
+                seen.add(key)
+                calls[name].append(_copy(args))
+            return fn(*args)
+        return recorded
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = [(m, n, getattr(m, n)) for m, n in targets]
+        for m, n, fn in saved:
+            setattr(m, n, wrap(n, fn))
+        try:
+            yield calls
+        finally:
+            for m, n, fn in saved:
+                setattr(m, n, fn)
+
+    return swapped()
+
+
+def check_recorded_inputs(calls, detail, path):
+    """Kernels E, F and G against their plain versions on the inputs a
+    path gave them (recording_kernel_inputs): E's fold + top-q with the
+    recorded centers and q, its min fold over the recorded centers and
+    its D² draw over up to 20 steps from the recorded state; F on the
+    recorded embeddings and head; G pooled and unpooled on the recorded
+    logits and embeddings.  Fails if a kernel of the three got no call.
+    Returns the max abs err of each."""
+    err = {"E": 0.0, "F": 0.0, "G": 0.0}
+    for args in calls["fold_select"]:
+        factors, sqn, md, sel, centers, q = args[:6]
+        where = (f"N={sqn.shape[0]} D="
+                 f"{'+'.join(str(f.shape[1]) for f in factors)} "
+                 f"centers={centers.numel()}")
+        err["E"] = max(err["E"], _check_fold_select(
+            factors, sqn, md, sel, centers, q, where, detail, path))
+    for factors, sqn, _, centers in calls["min_fold"]:
+        where = (f"N={sqn.shape[0]} D="
+                 f"{'+'.join(str(f.shape[1]) for f in factors)} "
+                 f"centers={centers.numel()}")
+        err["E"] = max(err["E"], _check_min_fold(factors, sqn, centers,
+                                                 where, detail, path))
+    for factors, sqn, md, sel, *_ in calls["fold_draw"][:1]:
+        where = (f"N={sqn.shape[0]} D="
+                 f"{'+'.join(str(f.shape[1]) for f in factors)}")
+        steps = min(20, int((sel > 0).sum()))
+        if steps < 1:
+            raise AssertionError(f"path {path}: a D² draw over a pool with "
+                                 "nothing selectable")
+        err["E"] = max(err["E"], _check_fold_draw(
+            factors, sqn, md, sel, steps, sqn.shape[0], where, detail, path))
+    for emb, kernel, bias, _ in calls["boundary_radii"]:
+        where = f"B={emb.shape[0]} C={kernel.shape[1]} D={emb.shape[1]}"
+        err["F"] = max(err["F"], _check_radii(emb, kernel, bias, where,
+                                              detail, path)[0])
+    for logits, emb, _ in calls["badge_factors"]:
+        where = f"B={logits.shape[0]} C={logits.shape[1]} D={emb.shape[1]}"
+        err["G"] = max(err["G"], _check_badge(logits, emb, where, detail,
+                                              path))
+    shapes = {n: [_sig(a) for a in v] for n, v in calls.items() if v}
+    for kernel, names in (("E", ("fold_select", "min_fold")),
+                          ("F", ("boundary_radii",)),
+                          ("G", ("badge_factors",))):
+        if not any(calls[n] for n in names):
+            raise AssertionError(f"path {path}: no call of kernel {kernel} "
+                                 f"was recorded ({shapes})")
+    n_shapes = sum(len(v) for v in calls.values())
+    log(f"kernels E, F, G held at the {path} path's {n_shapes} recorded "
+        f"input shapes: max errs {err}")
+    return err
+
+
+def record_cli_geometry_inputs(dev):
+    """The inputs kernels E, F and G take on the cli_geometry path: each
+    CLI_GEOMETRY strategy built in this process from the same flags
+    (SSLResNet18 with the synthetic set's 10 classes at 32 px, its arg
+    pool's scoring batch, the CLI's pool and partitions), its round-1
+    query run once with the entry points recording."""
+    from active_learning_tpu_torch.experiment import cli, driver
+
+    calls = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as tmp:
+        with recording_kernel_inputs() as calls:
+            for name, extra in CLI_GEOMETRY:
+                cfg = cli.parse([*_CLI_FLAGS, "--log_dir", tmp,
+                                 "--ckpt_path", tmp, "--strategy", name,
+                                 *extra])
+                strat = driver.build_experiment(cfg)
+                strat.round = 1
+                strat.query(cfg.round_budget)
+                del strat
+    torch.cuda.synchronize()
+    return calls
+
+
+def run_cli_geometry(tmp: str):
+    out, total = {}, {}
+    for name, extra in CLI_GEOMETRY:
+        run = _run_cli(os.path.join(tmp, name), ["--strategy", name, *extra])
+        if run["tested"] != {0, 1}:
+            raise AssertionError(f"CLI {name}: rounds tested {run['tested']}")
+        missing = [k for k in QUERY_KERNELS[name] if run["launches"][k] < 1]
+        if missing:
+            raise AssertionError(f"CLI {name} never launched {missing}")
+        log(f"CLI {name} on the card: {run['wall_s']:.1f} s, launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }")
+        out[name] = {"wall_s": run["wall_s"], "launches": run["launches"],
+                     "phase_times": run["phase_times"]}
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return out, total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", default=None,
@@ -1157,14 +1985,52 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         cli_run = run_cli_path(tmp)
     f32_step = check_train_step_f32_against_cpu()
+
+    # 7. The geometry samplers' kernels against their plain versions.
+    t0 = time.perf_counter()
+    err_e, times_e = check_kcenter(dev, detail)
+    err_f, times_f = check_boundary_radii(dev, detail)
+    err_g, times_g = check_badge(dev, detail)
+    log(f"geometry kernel checks: {time.perf_counter() - t0:.1f} s")
+
+    # 8. Full-width scoring through the strategies, and kernels E, F and
+    # G held on the inputs that path gave them.
+    query, query_calls = run_query_path(dev)
+    held = [check_recorded_inputs(query_calls, detail, "query")]
+    del query_calls
+    torch.cuda.empty_cache()
+    geo_f32 = check_geometry_f32_against_cpu(view, rows[17][:4])
+
+    # 9. Selection at the sweep's pool size.
+    selection, sel_launches = run_selection_path(dev)
+
+    # 10. The geometry samplers through the CLI on the card; first kernels
+    # E, F and G held on the inputs the CLI's queries give them.
+    held.append(check_recorded_inputs(record_cli_geometry_inputs(dev),
+                                      detail, "cli_geometry"))
+    torch.cuda.empty_cache()
+    err_e, err_f, err_g = (max([e, *(h[k] for h in held)]) for e, k in
+                           ((err_e, "E"), (err_f, "F"), (err_g, "G")))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_geo_") as tmp:
+        cli_geo, cli_geo_launches = run_cli_geometry(tmp)
+
+    def total(runs):
+        keys = next(iter(runs)).keys()
+        return {k: sum(r[k] for r in runs) for k in keys}
+
     paths = {"serve": launches, "fit": fit["launches"],
-             "cli": cli_run["launches"]}
+             "cli": cli_run["launches"],
+             "query": total([q["launches"] for q in query.values()]),
+             "select": total(list(sel_launches.values())),
+             "cli_geometry": cli_geo_launches}
 
     def count(*names):
         by = {p: sum(v[n] for n in names) for p, v in paths.items()}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     c_names = ("bn_train_stats", "bn_train_bwd_reduce", "bn_train_dx")
+    e_names = ("kcenter_fold_select", "kcenter_fold_draw", "kcenter_min_fold")
+    f_names = ("boundary_radii", "head_pair_norms")
     kernels = [
         {"name": "prob_stats", "route": "cuda",
          "source": "active_learning_tpu_torch/csrc/prob_stats.cu",
@@ -1187,7 +2053,29 @@ def main() -> int:
          "source": "active_learning_tpu_torch/csrc/fused_sgd.cu",
          "replaces": "active_learning_tpu/train/optim.py:97",
          **count("fused_sgd"), "max_abs_err": err_d, **times_d},
+        {"name": "kcenter", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/kcenter.cu",
+         "replaces": "active_learning_tpu/strategies/scoring.py:45",
+         **count(*e_names), "max_abs_err": err_e,
+         "launches_by_function": {n: sum(v[n] for v in paths.values())
+                                  for n in e_names},
+         **times_e},
+        {"name": "boundary_radii", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/boundary_radii.cu",
+         "replaces": "active_learning_tpu/strategies/scoring.py:209",
+         **count(*f_names), "max_abs_err": err_f,
+         "launches_by_function": {n: sum(v[n] for v in paths.values())
+                                  for n in f_names},
+         **times_f},
+        {"name": "badge", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/badge.cu",
+         "replaces": "active_learning_tpu/strategies/scoring.py:154",
+         **count("badge_factors"), "max_abs_err": err_g, **times_g},
     ]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"kernel {k['name']} never launched on the "
+                                 "main paths")
     if args.detail:
         os.makedirs(os.path.dirname(os.path.abspath(args.detail)),
                     exist_ok=True)
@@ -1195,6 +2083,9 @@ def main() -> int:
             json.dump({"kernels": kernels, "serving": serving,
                        "training": {"fit": fit, "cli": cli_run,
                                     "f32_step": f32_step},
+                       "acquisition": {"query": query, "f32": geo_f32,
+                                       "selection": selection,
+                                       "cli": cli_geo},
                        "checks": detail}, fh, indent=1, default=str)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,6 +8,11 @@ MarginSampler query, the command line, and the saved experiment state.
 * The CLI run (``--device cpu``, synthetic, 2 rounds) exits 0, and its
   round-0 labeled and eval indices are the JAX package's for the same
   flags, bit for bit (both come from numpy draws on the same seeds).
+* Each geometry sampler (MASE, BASE, Coreset, BADGE and the partitioned
+  two) runs the CLI for 2 rounds on the CPU: exit 0, and the round-1
+  query labels distinct rows outside round 0's and the eval split.
+* ``TrainConfig.score_batch_size`` set in an arg pool is the batch the
+  scoring pass uses.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from active_learning_tpu_torch.config import (ExperimentConfig, LoaderConfig,
 from active_learning_tpu_torch.data.synthetic import get_data_synthetic
 from active_learning_tpu_torch.experiment import cli, driver
 from active_learning_tpu_torch.models import resnet
+from active_learning_tpu_torch.registry import ARG_POOLS
+from active_learning_tpu_torch.strategies import base as strategy_base
 from active_learning_tpu_torch.models.weights import load_flax_variables
 from active_learning_tpu_torch.train import checkpoint as ckpt_lib
 from active_learning_tpu_torch.train.trainer import Trainer
@@ -135,8 +142,8 @@ def test_without_a_card_the_cli_raises(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--resume_training"], ["--stem", "s2d"], ["--grad_allreduce", "int8"],
-    ["--dataset", "cifar10"], ["--strategy", "CoresetSampler"],
-    ["--arg_pool", "ssp_finetuning"]])
+    ["--dataset", "cifar10"], ["--strategy", "VAALSampler"],
+    ["--arg_pool", "ssp_finetuning"], ["--pool_sharding", "row"]])
 def test_flags_not_ported_exit_2_naming_the_roadmap(flags, capsys):
     # argparse keeps the last value of a repeated flag.
     assert port_main.main(CLI_FLAGS + ["--device", "cpu"] + flags) == 2
@@ -173,3 +180,83 @@ def test_cli_parses_the_jax_flag_names():
         "random_balance", 3, "cpu")
     assert (cfg.rounds, cfg.round_budget, cfg.n_epoch,
             cfg.early_stop_patience) == (2, 16, 2, 2)
+
+
+def test_cli_carries_the_coreset_flags_with_the_jax_defaults():
+    from active_learning_tpu.experiment.cli import get_parser as jax_parser
+    cfg = cli.parse(CLI_FLAGS)
+    jax_args = jax_parser().parse_args(CLI_FLAGS)
+    for name in ("subset_labeled", "subset_unlabeled", "partitions",
+                 "kcenter_batch"):
+        assert getattr(cfg, name) == getattr(jax_args, name), name
+    assert (cfg.subset_labeled, cfg.subset_unlabeled, cfg.partitions,
+            cfg.kcenter_batch) == (None, None, 1, 8)
+    cfg = cli.parse(CLI_FLAGS + ["--subset_labeled", "5",
+                                 "--subset_unlabeled", "40",
+                                 "--partitions", "3", "--kcenter_batch", "2"])
+    assert (cfg.subset_labeled, cfg.subset_unlabeled, cfg.partitions,
+            cfg.kcenter_batch) == (5, 40, 3, 2)
+
+
+GEOMETRY = [("MASESampler", []), ("BASESampler", []),
+            ("CoresetSampler", []), ("BADGESampler", []),
+            ("PartitionedCoresetSampler", ["--partitions", "3"]),
+            ("PartitionedBADGESampler", ["--partitions", "3"])]
+
+
+@pytest.mark.parametrize("strategy,extra", GEOMETRY,
+                         ids=[g[0] for g in GEOMETRY])
+def test_geometry_sampler_cli_runs_two_rounds_on_cpu(tmp_path, strategy,
+                                                     extra):
+    flags = [f for f in CLI_FLAGS if f != "MarginSampler"]
+    flags[flags.index("--strategy") + 1:flags.index("--strategy") + 1] = [
+        strategy]
+    flags[flags.index("--n_epoch") + 1] = "1"
+    cmd = [sys.executable, "-m", "active_learning_tpu_torch", *flags,
+           *extra, "--device", "cpu", "--log_dir", str(tmp_path / "logs"),
+           "--ckpt_path", str(tmp_path / "ckpt")]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assets = tmp_path / "logs" / "assets"
+    rounds = [np.array([int(v) for v in (
+        assets / f"labeled_idxs_on_rd_{r}.txt").read_text().split(",")])
+        for r in (0, 1)]
+    assert len(rounds[1]) == 16 and np.unique(rounds[1]).size == 16
+    assert not np.isin(rounds[1], rounds[0]).any()
+    state = np.load(tmp_path / "ckpt" / "active_learning_cpu0"
+                    / "experiment_state.npz")
+    assert not np.isin(rounds[1], state["eval_idxs"]).any()
+    assert int(state["labeled"].sum()) == 32
+
+
+def test_score_batch_size_in_an_arg_pool_is_the_scoring_batch(tmp_path,
+                                                              monkeypatch):
+    """An arg pool's ``score_batch_size`` wins over the evaluation batch
+    in ``collect_scores``, as ``Strategy._score_batch_size`` rules in the
+    JAX package (it used to be dropped)."""
+    name = "synthetic_score_batch_24"
+    if name not in ARG_POOLS.names():
+        ARG_POOLS.register(name, {"synthetic": TrainConfig(
+            eval_split=0.1, loader_te=LoaderConfig(batch_size=32),
+            score_batch_size=24)})
+    data = get_data_synthetic(n_train=96, n_test=8, num_classes=4,
+                              image_size=8, seed=5)
+    seen = []
+    real = strategy_base.gather_batch
+    monkeypatch.setattr(strategy_base, "gather_batch",
+                        lambda ds, b, bs: seen.append(bs) or real(ds, b, bs))
+    for pool, want in ((name, 24), ("synthetic", 100)):
+        cfg = ExperimentConfig(dataset="synthetic", arg_pool=pool,
+                               strategy="MASESampler", round_budget=8,
+                               device="cpu", ckpt_path=str(tmp_path),
+                               log_dir=str(tmp_path))
+        model = resnet.SSLClassifier((1, 1), resnet.BasicBlock, 4,
+                                     cifar_stem=True)
+        strategy = driver.build_experiment(cfg, data=data, model=model)
+        seen.clear()
+        idxs = strategy.available_query_idxs(shuffle=False)
+        out = strategy.collect_scores(idxs, "mase")
+        assert len(out["min_margin"]) == len(idxs)
+        assert seen and set(seen) == {want}, (pool, seen)

@@ -4,8 +4,8 @@ JAX package.
 
 Two checks: every port module imports in a fresh interpreter where those
 names are blocked in ``sys.modules``; and an AST scan of every import
-statement in the package and in ``chip_smoke.py``.  The training slice's
-modules are also named one by one.
+statement in the package and in ``chip_smoke.py``.  The modules of the
+training and acquisition slices are also named one by one.
 """
 
 from __future__ import annotations
@@ -90,8 +90,14 @@ TRAINING_SLICE = (
     "experiment/arg_pools", "experiment/resume", "experiment/driver",
     "experiment/cli")
 
+# The geometry samplers' acquisition path.
+ACQUISITION_SLICE = (
+    "device", "utils/threefry", "ops/kcenter", "ops/boundary_radii",
+    "ops/badge", "strategies/kcenter", "strategies/scoring",
+    "strategies/mase", "strategies/coreset")
 
-@pytest.mark.parametrize("module", TRAINING_SLICE)
+
+@pytest.mark.parametrize("module", TRAINING_SLICE + ACQUISITION_SLICE)
 def test_training_slice_module_is_checked(module):
     path = os.path.join(PKG, *module.split("/")) + ".py"
     assert path in _port_files()

@@ -1,0 +1,186 @@
+"""The port's greedy k-center (``strategies/kcenter.py`` on kernel E's
+plain versions) against the JAX package's ``kcenter_greedy`` and the
+reference loop ``tests/test_kcenter.py::oracle_kcenter``, on the CPU.
+
+Picks are identical in every case: q in {1, 2, 8}, one factor and two,
+an empty labeled set (the minimax seed), a budget that takes the whole
+pool, pool sizes on both sides of a bucket edge, and the randomized D²
+mode over several seeds (the same ``np.random.default_rng`` feeds both
+packages; the port draws through ``utils/threefry.py``).  Each pick's
+recorded distance (``LAST_PICK_DISTS``) is within 1e-5 relative of the
+JAX package's: the same float32 distances summed in another order.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from active_learning_tpu.strategies import kcenter as jk
+from active_learning_tpu.strategies import scoring as jax_scoring
+
+from active_learning_tpu_torch.pool import bucket_size
+from active_learning_tpu_torch.strategies import kcenter as pk
+from active_learning_tpu_torch.strategies import scoring
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_kcenter import oracle_kcenter  # noqa: E402
+
+
+def _pool(seed, n, dims, n_labeled):
+    rng = np.random.default_rng(seed)
+    factors = tuple(rng.normal(size=(n, d)).astype(np.float32)
+                    for d in dims)
+    labeled = np.zeros(n, dtype=bool)
+    labeled[rng.choice(n, n_labeled, replace=False)] = True
+    return factors, labeled
+
+
+def _outer(factors):
+    if len(factors) == 1:
+        return factors[0]
+    a, e = factors
+    return np.einsum("nc,nd->ncd", a, e).reshape(len(a), -1)
+
+
+def _both(factors, labeled, budget, seed, **kw):
+    got = pk.kcenter_greedy(factors, labeled, budget,
+                            rng=np.random.default_rng(seed), device="cpu",
+                            **kw)
+    got_d = pk.LAST_PICK_DISTS
+    want = jk.kcenter_greedy(factors, labeled, budget,
+                             rng=np.random.default_rng(seed), **kw)
+    return got, got_d, want, jk.LAST_PICK_DISTS
+
+
+def _close_dists(got, want):
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=1e-5)
+
+
+@pytest.mark.parametrize("q", [1, 2, 8])
+@pytest.mark.parametrize("dims", [(6,), (5, 7)], ids=["one", "two"])
+def test_deterministic_picks_match_jax_and_oracle(q, dims):
+    factors, labeled = _pool(11, 70, dims, 9)
+    got, got_d, want, want_d = _both(factors, labeled, 13, 1, batch_q=q)
+    np.testing.assert_array_equal(got, oracle_kcenter(_outer(factors),
+                                                      labeled, 13))
+    np.testing.assert_array_equal(got, want)
+    _close_dists(got_d, want_d)
+
+
+@pytest.mark.parametrize("q", [1, 8])
+@pytest.mark.parametrize("dims", [(4,), (3, 5)], ids=["one", "two"])
+def test_empty_labeled_takes_the_minimax_seed(q, dims):
+    factors, labeled = _pool(12, 40, dims, 0)
+    got, got_d, want, want_d = _both(factors, labeled, 9, 2, batch_q=q)
+    np.testing.assert_array_equal(got, oracle_kcenter(_outer(factors),
+                                                      labeled, 9))
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got_d[0]) and not np.isnan(got_d[1:]).any()
+    _close_dists(got_d, want_d)
+
+
+@pytest.mark.parametrize("q", [1, 2, 8])
+def test_budget_exhausts_the_pool(q):
+    factors, labeled = _pool(14, 20, (3,), 5)
+    got, _, want, _ = _both(factors, labeled, 15, 4, batch_q=q)
+    assert np.unique(got).size == 15 and not labeled[got].any()
+    np.testing.assert_array_equal(got, oracle_kcenter(factors[0], labeled,
+                                                      15))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [250, 260])
+def test_pool_sizes_on_both_sides_of_a_bucket_edge(n):
+    assert bucket_size(250) == 256 and bucket_size(260) == 512
+    factors, labeled = _pool(15, n, (8,), 30)
+    for q in (1, 8):
+        got, got_d, want, want_d = _both(factors, labeled, 20, 5, batch_q=q)
+        np.testing.assert_array_equal(got, oracle_kcenter(factors[0],
+                                                          labeled, 20))
+        np.testing.assert_array_equal(got, want)
+        _close_dists(got_d, want_d)
+    got, got_d, want, want_d = _both(factors, labeled, 20, 5,
+                                     randomize=True)
+    np.testing.assert_array_equal(got, want)
+    _close_dists(got_d, want_d)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("dims,n_labeled", [((6,), 10), ((4, 16), 10),
+                                            ((4, 16), 0)],
+                         ids=["one", "two", "two-empty"])
+def test_randomized_picks_match_jax(seed, dims, n_labeled):
+    factors, labeled = _pool(100 + seed, 300, dims, n_labeled)
+    got, got_d, want, want_d = _both(factors, labeled, 25, seed,
+                                     randomize=True)
+    np.testing.assert_array_equal(got, want)
+    assert np.unique(got).size == 25 and not labeled[got].any()
+    _close_dists(got_d, want_d)
+
+
+def test_randomized_uniform_fallback_matches_jax():
+    """Every unlabeled row duplicates a labeled one: all D² weights are
+    0 and the draw falls back to uniform over the selectable rows.
+    Small integers keep every product and sum exact, so the distances
+    are exactly 0 in both packages."""
+    rng = np.random.default_rng(7)
+    base = rng.integers(-2, 3, size=(10, 4)).astype(np.float32)
+    emb = np.concatenate([base, base, base])
+    labeled = np.zeros(30, dtype=bool)
+    labeled[:10] = True
+    got, got_d, want, want_d = _both((emb,), labeled, 4, 3, randomize=True)
+    np.testing.assert_array_equal(got, want)
+    assert (got_d == 0).all() and (want_d == 0).all()
+
+
+def fold_bound(sqn: np.ndarray, depth: int) -> np.ndarray:
+    """How far two float32 evaluations of ``sqn_i + sqn_c - 2 g_i.g_c``
+    in other summation orders may differ, per row: 2 * depth * eps *
+    (sqn_i + max sqn_c), ``depth`` the summed feature count of the
+    factors.  It matters where the distance cancels to ~0 (a row against
+    itself)."""
+    eps = np.finfo(np.float32).eps
+    return 2 * depth * eps * (sqn + sqn.max())
+
+
+def test_min_sq_dist_and_fold_helpers_match_jax():
+    factors, labeled = _pool(16, 90, (5, 7), 0)
+    labeled_idxs = np.random.default_rng(0).choice(90, 33, replace=False)
+    jf = tuple(jnp.asarray(f) for f in factors)
+    tf = tuple(torch.from_numpy(f) for f in factors)
+    jsqn, tsqn = jk.self_sq_norms(jf), pk.self_sq_norms(tf)
+    np.testing.assert_allclose(tsqn.numpy(), np.asarray(jsqn), rtol=1e-6)
+    want = np.asarray(jk.min_sq_dist_to(jf, jsqn, labeled_idxs,
+                                        chunk_size=7))
+    got = pk.min_sq_dist_to(tf, tsqn, labeled_idxs, chunk_size=7)
+    bound = fold_bound(np.asarray(jsqn), 12)
+    assert (np.abs(got.numpy() - want) <= bound).all()
+    np.testing.assert_allclose(pk.dots_to(tf, 3).numpy(),
+                               np.asarray(jk.dots_to(jf, 3)), rtol=1e-5,
+                               atol=1e-5)
+    idx = np.array([1, 4, 9])
+    np.testing.assert_allclose(
+        pk.dots_between(tf, torch.from_numpy(idx)).numpy(),
+        np.asarray(jk.dots_between(jf, jnp.asarray(idx))), rtol=1e-5,
+        atol=1e-5)
+    start = np.full(90, np.inf, np.float32)
+    want = np.asarray(jax_scoring.batched_min_dist_update(
+        jf, jsqn, jnp.asarray(start), jnp.asarray(idx)))
+    got = scoring.batched_min_dist_update(
+        tf, tsqn, torch.from_numpy(start.copy()), torch.from_numpy(idx))
+    assert (np.abs(got.numpy() - want) <= bound).all()
+
+
+@pytest.mark.parametrize("n_in,n_out", [(10, 10), (1000, 16), (512, 51),
+                                        (2048, 32), (7, 3)])
+def test_adaptive_avg_pool_matrix_is_jax_bit_for_bit(n_in, n_out):
+    np.testing.assert_array_equal(pk.adaptive_avg_pool_matrix(n_in, n_out),
+                                  jk.adaptive_avg_pool_matrix(n_in, n_out))

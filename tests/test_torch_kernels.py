@@ -12,10 +12,14 @@ from __future__ import annotations
 import pytest
 import torch
 
+from active_learning_tpu_torch.ops import badge as bg
 from active_learning_tpu_torch.ops import bn_act as ba
 from active_learning_tpu_torch.ops import bn_train as bt
+from active_learning_tpu_torch.ops import boundary_radii as br
 from active_learning_tpu_torch.ops import fused_sgd as fs
+from active_learning_tpu_torch.ops import kcenter as kc
 from active_learning_tpu_torch.ops import prob_stats as ps
+from active_learning_tpu_torch.utils import threefry
 
 pytestmark = pytest.mark.cuda
 
@@ -194,3 +198,178 @@ def test_training_wrappers_raise_rather_than_fall_back(cuda_device):
     p = torch.zeros(8, device=cuda_device)
     with pytest.raises(TypeError):
         fs.fused_sgd_update([p], [p.double()], [p.clone()], 0.1, 0.9, 0.0)
+
+
+# -- kernel E: k-center fold, top-q, D² draw ---------------------------------
+
+def _kc_pool(dev, n, dims, seed, n_labeled=64):
+    """Seeded factors, their squared norms, the min distance to the
+    first ``n_labeled`` rows (plain version) and the selectable mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    factors = tuple(torch.randn(n, d, device=dev, generator=g)
+                    for d in dims)
+    sqn = None
+    for f in factors:
+        s = (f * f).sum(dim=1)
+        sqn = s if sqn is None else sqn * s
+    labeled = torch.arange(n_labeled, device=dev)
+    min_dist = torch.full((n,), float("inf"), device=dev)
+    kc.fold_reference(factors, sqn, min_dist, labeled)
+    sel = torch.ones(n, device=dev)
+    sel[labeled] = 0.0
+    centers = torch.randperm(n - n_labeled, device=dev,
+                             generator=g)[:8] + n_labeled
+    return factors, sqn, min_dist, sel, centers
+
+
+KC_SHAPES = [(1000, (37,)), (1000, (5, 7)), (13000, (2048,)),
+             (13000, (16, 32)), (131072, (2048,))]
+
+
+@pytest.mark.parametrize("n,dims", KC_SHAPES)
+def test_kcenter_fold_select_matches_plain(cuda_device, n, dims):
+    """min_dist within kc.fold_tolerance of the plain version; selectable
+    equal; the kernel's top-q is exactly the top-q of its own min_dist
+    (the reduce is exact); where a pick differs from the plain one, the
+    two rows' plain distances lie within the tolerance."""
+    factors, sqn, md0, sel0, centers = _kc_pool(cuda_device, n, dims, n)
+    tol = kc.fold_tolerance(sqn, float(sqn[centers].max()), sum(dims))
+    for q in (1, 8):
+        md_k, sel_k = md0.clone(), sel0.clone()
+        md_p, sel_p = md0.clone(), sel0.clone()
+        before = kc.select_launches
+        vk, ik = kc.fold_select(factors, sqn, md_k, sel_k, centers, q)
+        vp, ip = kc.fold_select_reference(factors, sqn, md_p, sel_p,
+                                          centers, q)
+        torch.cuda.synchronize()
+        assert kc.select_launches == before + 1
+        assert torch.equal(sel_k, sel_p)
+        assert bool(((md_k - md_p).abs() <= tol).all())
+        own_v, own_i = kc.top_q(torch.where(sel_k > 0, md_k,
+                                            torch.full_like(md_k,
+                                                            -float("inf"))),
+                                q)
+        assert torch.equal(vk, own_v) and torch.equal(ik, own_i)
+        gap = (md_p[ik] - vp).abs()
+        assert bool((gap <= 2 * tol.max()).all())
+
+
+@pytest.mark.parametrize("n,dims", KC_SHAPES[:4])
+def test_kcenter_min_fold_matches_plain(cuda_device, n, dims):
+    factors, sqn, _, _, _ = _kc_pool(cuda_device, n, dims, n + 1)
+    centers = torch.arange(0, n, max(1, n // 1024), device=cuda_device)[:1024]
+    md_k = torch.full((n,), float("inf"), device=cuda_device)
+    md_p = md_k.clone()
+    before = kc.min_fold_launches
+    kc.min_fold(factors, sqn, md_k, centers)
+    kc.fold_reference(factors, sqn, md_p, centers)
+    torch.cuda.synchronize()
+    assert kc.min_fold_launches == before + 1
+    tol = kc.fold_tolerance(sqn, float(sqn[centers].max()), sum(dims))
+    assert bool(((md_k - md_p).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("n,dims", KC_SHAPES[:4])
+def test_kcenter_fold_draw_matches_plain(cuda_device, n, dims):
+    """The kernel's Threefry bits are the plain version's bit for bit;
+    its Gumbel noise within one ulp of max(1, |g|) (logf against torch's
+    log); the drawn rows equal over 20 steps, their weights within the
+    fold tolerance."""
+    factors, sqn, md0, sel0, _ = _kc_pool(cuda_device, n, dims, n + 2)
+    keys = threefry.split(threefry.prng_key(n), 20)
+    bits, gum = kc.random_bits((int(keys[0, 0]), int(keys[0, 1])), n,
+                               cuda_device)
+    key0 = (int(keys[0, 0]), int(keys[0, 1]))
+    assert torch.equal(bits, threefry.random_bits(key0, n, cuda_device))
+    g_ref = threefry.gumbel(key0, n, cuda_device)
+    ulp = torch.maximum(torch.ones_like(g_ref), g_ref.abs()) * 2.0 ** -23
+    assert bool(((gum - g_ref).abs() <= ulp).all())
+    md_k, sel_k, md_p, sel_p = md0.clone(), sel0.clone(), md0.clone(), \
+        sel0.clone()
+    pk = torch.zeros(20, dtype=torch.int64, device=cuda_device)
+    vk = torch.zeros(20, device=cuda_device)
+    none = torch.zeros(0, dtype=torch.int64, device=cuda_device)
+    before = kc.draw_launches
+    for i in range(20):
+        key = (int(keys[i, 0]), int(keys[i, 1]))
+        kc.fold_draw(factors, sqn, md_k, sel_k, pk[i - 1:i] if i else none,
+                     key, vk[i:i + 1], pk[i:i + 1])
+        prev = torch.tensor([int(pk[i - 1])], device=cuda_device) if i \
+            else none
+        vp, ip = kc.fold_draw_reference(factors, sqn, md_p, sel_p, prev, key)
+        assert int(ip) == int(pk[i]), i
+        tol = kc.fold_tolerance(sqn, float(sqn.max()), sum(dims))
+        assert abs(float(vp) - float(vk[i])) <= float(tol.max())
+    assert kc.draw_launches == before + 20
+
+
+def test_kcenter_wrappers_raise_rather_than_fall_back(cuda_device):
+    f = torch.zeros(10, 4, device=cuda_device)
+    v = torch.zeros(10, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 8"):
+        kc.fold_select((f,), v, v.clone(), v.clone(),
+                       torch.arange(9, device=cuda_device), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.min_fold((torch.zeros(10, 8, device=cuda_device)[:, ::2],), v,
+                    v.clone(), torch.arange(2, device=cuda_device))
+
+
+# -- kernel F: boundary radii, pair norms -------------------------------------
+
+@pytest.mark.parametrize("b,c,d", [(7, 10, 33), (256, 1000, 2048)])
+def test_boundary_radii_kernel_matches_plain(cuda_device, b, c, d):
+    """Predictions equal (or, where they differ, the two logits within
+    br.logits_tolerance); radii within br.radii_tolerance where the
+    predictions agree, +inf at the same places; pair norms within
+    2 * D * eps of their value."""
+    g = torch.Generator(device=cuda_device).manual_seed(b + c + d)
+    emb = torch.randn(b, d, device=cuda_device, generator=g)
+    kernel = torch.randn(d, c, device=cuda_device, generator=g) * 0.05
+    bias = torch.randn(c, device=cuda_device, generator=g) * 0.1
+    before = (br.radii_launches, br.pair_norms_launches)
+    norms_k = br.head_pair_norms(kernel)
+    norms_p = br.head_pair_norms_reference(kernel)
+    got = br.boundary_radii(emb, kernel, bias, norms_p)
+    ref = br.boundary_radii_reference(emb, kernel, bias, norms_p)
+    torch.cuda.synchronize()
+    assert (br.radii_launches, br.pair_norms_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert bool(((norms_k - norms_p).abs()
+                 <= 2 * d * 2.0 ** -23 * norms_p + 1e-30).all())
+    same = got["pred"] == ref["pred"]
+    if not bool(same.all()):
+        logits = emb @ kernel + bias
+        rows = (~same).nonzero()[:, 0]
+        gap = (logits[rows, got["pred"][rows].long()]
+               - logits[rows, ref["pred"][rows].long()]).abs()
+        assert bool((gap <= br.logits_tolerance(emb, kernel)[rows]).all())
+    rk, rp = got["radii"][same], ref["radii"][same]
+    assert torch.equal(torch.isinf(rk), torch.isinf(rp))
+    fin = torch.isfinite(rp)
+    tol = br.radii_tolerance(emb[same], rp.where(fin, torch.zeros_like(rp)))
+    assert bool(((rk - rp).abs()[fin] <= tol[fin]).all())
+    mm_tol = tol.where(fin, torch.zeros_like(tol)).max(dim=1).values
+    assert bool(((got["min_margin"][same] - ref["min_margin"][same]).abs()
+                 <= mm_tol).all())
+
+
+# -- kernel G: BADGE factors --------------------------------------------------
+
+@pytest.mark.parametrize("pool_512", [False, True])
+@pytest.mark.parametrize("b,c,d", [(5, 10, 512), (256, 1000, 2048),
+                                   (3, 3, 40), (2, bg.MAX_CLASSES, 512)])
+def test_badge_kernel_matches_plain(cuda_device, b, c, d, pool_512):
+    """softmax - onehot within 1e-6 (a sum of C float32 terms in another
+    order); pooled bins within 1e-5 relative and 1e-6 absolute (the
+    plain version pools by a matrix product)."""
+    g = torch.Generator(device=cuda_device).manual_seed(b * c)
+    logits = torch.randn(b, c, device=cuda_device, generator=g) * 3.0
+    emb = torch.randn(b, d, device=cuda_device, generator=g)
+    before = bg.launches
+    got = bg.badge_factors(logits, emb, pool_512)
+    ref = bg.badge_factors_reference(logits, emb, pool_512)
+    torch.cuda.synchronize()
+    assert bg.launches == before + 1
+    for k in ("grad_a", "grad_e"):
+        assert got[k].shape == ref[k].shape
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-6)
