@@ -126,6 +126,17 @@ class TrainConfig:
         return self.pretrained.path is not None
 
 
+@dataclasses.dataclass(frozen=True)
+class VAALConfig:
+    """VAAL's VAE / discriminator knobs (the reference's parser.py:83-87),
+    with the JAX package's defaults."""
+
+    vae_latent_dim: int = 64
+    adversary_param: float = 10.0
+    lr_vae: float = 5e-5
+    lr_discriminator: float = 1e-3
+
+
 @dataclasses.dataclass
 class ExperimentConfig:
     """Top-level experiment configuration (the CLI flags the training
@@ -166,6 +177,8 @@ class ExperimentConfig:
     subset_unlabeled: Optional[int] = None
     partitions: int = 1
     kcenter_batch: int = 8
+
+    vaal: VAALConfig = dataclasses.field(default_factory=VAALConfig)
 
     # The reference's fixed seeds (eval split 99, init pool 98) and the
     # run's own.

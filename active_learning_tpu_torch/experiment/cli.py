@@ -19,7 +19,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-from ..config import ExperimentConfig
+from ..config import ExperimentConfig, VAALConfig
 
 # Flags of the JAX CLI this port does not carry yet: name -> takes a value.
 UNSUPPORTED_FLAGS = {
@@ -38,9 +38,7 @@ UNSUPPORTED_FLAGS = {
     "--pool_sharding": True, "--pool_backend": True, "--train_feed": True,
     "--feed_workers": True, "--grad_allreduce": True,
     "--scale_batch": True, "--round_pipeline": True,
-    "--compilation_cache_dir": True, "--vae_latent_dim": True,
-    "--vaal_adversary_param": True, "--adversary_param": True,
-    "--lr_vae": True, "--lr_discriminator": True, "--num_devices": True,
+    "--compilation_cache_dir": True, "--num_devices": True,
     "--coordinator_address": True, "--num_processes": True,
     "--process_id": True,
 }
@@ -105,6 +103,11 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--kcenter_batch", type=int, default=8,
                    help="picks the greedy k-center folds per pool pass "
                         "(the exact re-check keeps the picks of 1)")
+    p.add_argument("--vae_latent_dim", type=int, default=64)
+    p.add_argument("--vaal_adversary_param", "--adversary_param",
+                   dest="vaal_adversary_param", type=float, default=10.0)
+    p.add_argument("--lr_vae", type=float, default=5e-5)
+    p.add_argument("--lr_discriminator", type=float, default=1e-3)
     p.add_argument("--run_seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -128,8 +131,12 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
         optim_state_dtype=args.optim_state_dtype,
         subset_labeled=args.subset_labeled,
         subset_unlabeled=args.subset_unlabeled, partitions=args.partitions,
-        kcenter_batch=args.kcenter_batch, run_seed=args.run_seed,
-        device=args.device)
+        kcenter_batch=args.kcenter_batch,
+        vaal=VAALConfig(vae_latent_dim=args.vae_latent_dim,
+                        adversary_param=args.vaal_adversary_param,
+                        lr_vae=args.lr_vae,
+                        lr_discriminator=args.lr_discriminator),
+        run_seed=args.run_seed, device=args.device)
 
 
 def parse(argv: List[str]) -> ExperimentConfig:

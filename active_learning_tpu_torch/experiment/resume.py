@@ -1,12 +1,15 @@
 """Round-level experiment save (the JAX package's
 ``experiment/resume.py::save_experiment``): ``experiment_state.npz``
-(pool arrays + init key) and ``experiment_state.json`` (round, rng
-state, config echo, metrics key, best epoch) under
+(pool arrays + init key), ``aux_state.msgpack`` (the sampler's own
+state, ``Strategy.aux_state_bytes``: VAAL's VAE, discriminator and
+their optimizers) and ``experiment_state.json`` (round, rng state,
+config echo, metrics key, best epoch) under
 ``{ckpt_path}/{exp_name}_{exp_hash}``, each an atomic tmp + rename,
-meta last.  The port writes the JAX package's keys, so the npz of a port
+meta last; a stale aux file is removed when the sampler has none.  The
+port writes the JAX package's keys and layouts, so the npz of a port
 run and of a JAX run with the same flags compare key by key.  Loading a
-saved experiment (``--resume_training``) is still to be ported
-(ROADMAP.md)."""
+saved experiment, aux state included (``--resume_training``), is still
+to be ported (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..utils.logging import get_logger
 
 STATE_FILE = "experiment_state.npz"
 META_FILE = "experiment_state.json"
+AUX_FILE = "aux_state.msgpack"
 # The JAX package's weight-compatibility version (train/checkpoint.py
 # there): the port's checkpoints use the same layout.
 MODEL_FORMAT_VERSION = 2
@@ -49,6 +53,14 @@ def save_experiment(strategy, cfg: ExperimentConfig) -> str:
     state_path = os.path.join(directory, STATE_FILE)
     np.savez(state_path + ".tmp.npz", **arrays)
     os.replace(state_path + ".tmp.npz", state_path)
+    aux_path = os.path.join(directory, AUX_FILE)
+    aux = strategy.aux_state_bytes()
+    if aux is not None:
+        with open(aux_path + ".tmp", "wb") as fh:
+            fh.write(aux)
+        os.replace(aux_path + ".tmp", aux_path)
+    elif os.path.exists(aux_path):
+        os.remove(aux_path)
     meta = {
         "round": int(strategy.round),
         "model_format": MODEL_FORMAT_VERSION,

@@ -106,3 +106,41 @@ def to_flax_trace(traces: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``from_flax_trace`` (bf16 buffers come back as float32
     numpy arrays holding the same values)."""
     return {"trace": to_flax_variables(traces)["params"]}
+
+
+# -- VAAL's VAE and discriminator ------------------------------------------
+#
+# The same leaf renaming, with one more rule: a flax ConvTranspose kernel
+# [kh, kw, in, out] is torch's conv_transpose2d weight [in, out, kh, kw]
+# flipped in both spatial axes (``models/vaal.py``).
+
+def _is_deconv(key: str) -> bool:
+    return key.startswith("dec_deconv") and key.endswith(".weight")
+
+
+def from_flax_vaal(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The VAE's ``{"params", "batch_stats"}`` or the discriminator's
+    ``{"params"}`` flax tree -> its ``state_dict`` (CPU tensors)."""
+    out = from_flax_variables(variables)
+    for key, value in out.items():
+        if _is_deconv(key):
+            out[key] = value.transpose(0, 1).flip(2, 3).contiguous()
+    return out
+
+
+def to_flax_vaal(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of ``from_flax_vaal`` (numpy leaves)."""
+    flipped = {k: (v.detach().flip(2, 3).transpose(0, 1) if _is_deconv(k)
+                   else v) for k, v in state_dict.items()}
+    return to_flax_variables(flipped)
+
+
+def adam_to_flax(module: torch.nn.Module, adam) -> Dict[str, Any]:
+    """optax ``ScaleByAdamState`` as flax serializes it, ``{"count",
+    "mu", "nu"}``, from the port's ``train/optim.Adam`` over
+    ``module.parameters()``."""
+    names = [n for n, _ in module.named_parameters()]
+    return {"count": np.asarray(adam.count, dtype=np.int32),
+            "mu": to_flax_vaal(dict(zip(names, adam.mu)))["params"],
+            "nu": to_flax_vaal(dict(zip(names, adam.nu)))["params"]}
+

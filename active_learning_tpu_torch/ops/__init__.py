@@ -2,7 +2,8 @@
 kernel B ``bn_act`` (Triton), kernel C ``bn_train`` (CUDA, three device
 functions), kernel D ``fused_sgd`` (CUDA), kernel E ``kcenter`` (CUDA:
 fold + top-q, fold + D² draw, initial min), kernel F ``boundary_radii``
-(CUDA: radii, pair norms) and kernel G ``badge`` (CUDA).  Each wrapper
+(CUDA: radii, pair norms), kernel G ``badge`` (CUDA) and kernel H
+``balancing`` (CUDA: the balancing pick).  Each wrapper
 counts its launches; ``kernel_launches`` reads them all, so a run can
 show which kernels its path went through."""
 
@@ -12,8 +13,8 @@ from typing import Dict
 
 
 def kernel_launches() -> Dict[str, int]:
-    from . import (badge, bn_act, bn_train, boundary_radii, fused_sgd,
-                   kcenter, prob_stats)
+    from . import (badge, balancing, bn_act, bn_train, boundary_radii,
+                   fused_sgd, kcenter, prob_stats)
     return {"prob_stats": prob_stats.launches, "bn_act": bn_act.launches,
             "bn_train_stats": bn_train.stats_launches,
             "bn_train_bwd_reduce": bn_train.reduce_launches,
@@ -24,12 +25,13 @@ def kernel_launches() -> Dict[str, int]:
             "kcenter_min_fold": kcenter.min_fold_launches,
             "boundary_radii": boundary_radii.radii_launches,
             "head_pair_norms": boundary_radii.pair_norms_launches,
-            "badge_factors": badge.launches}
+            "badge_factors": badge.launches,
+            "balancing_pick": balancing.launches}
 
 
 def reset_kernel_launches() -> None:
-    from . import (badge, bn_act, bn_train, boundary_radii, fused_sgd,
-                   kcenter, prob_stats)
+    from . import (badge, balancing, bn_act, bn_train, boundary_radii,
+                   fused_sgd, kcenter, prob_stats)
     prob_stats.launches = 0
     bn_act.launches = 0
     bn_train.reset_launches()
@@ -37,3 +39,4 @@ def reset_kernel_launches() -> None:
     kcenter.reset_launches()
     boundary_radii.reset_launches()
     badge.launches = 0
+    balancing.launches = 0

@@ -126,6 +126,11 @@ class Strategy:
         init_weights(self.model, gen)
         self.logger.info("Initialized Network Weights Randomly.")
 
+    def aux_state_bytes(self) -> Optional[bytes]:
+        """The sampler's own state to save with the round (flax msgpack
+        bytes), or None: only VAAL has one."""
+        return None
+
     def load_best_ckpt(self) -> None:
         path = self.weight_paths()["best_ckpt"]
         self.logger.info(f"Loading best ckpt so far from: {path}")
@@ -149,8 +154,10 @@ class Strategy:
         self.sink.log_asset(f"labeled_idxs_on_rd_{self.round}",
                             ",".join(str(int(e)) for e in labeled_idxs))
 
-    def train(self) -> None:
-        """Per-round training with validation and early stopping."""
+    def train(self, batch_hook=None) -> None:
+        """Per-round training with validation and early stopping;
+        ``batch_hook(epoch, batch)`` runs after each step (VAAL's
+        co-step)."""
         labeled = self.already_labeled_idxs()
         self.logger.info(f"Starting training on round {self.round}")
 
@@ -162,7 +169,7 @@ class Strategy:
             n_epoch=self.cfg.n_epoch,
             es_patience=self.cfg.early_stop_patience, rng=self.rng,
             round_idx=self.round, weight_paths=self.weight_paths(),
-            metric_cb=metric_cb)
+            metric_cb=metric_cb, batch_hook=batch_hook)
         self.best_epoch = result.best_epoch
         self.best_perf = float(result.best_perf)
         self.logger.info(f"Finished training on round {self.round}")

@@ -18,8 +18,12 @@ backward, the global gradient norm (optax.global_norm) and the update
 fit's PRNG key), then one permutation per epoch orders the batches, so
 every later draw of the experiment stays aligned with the reference's.
 
+``batch_hook(epoch, batch)`` runs after each classifier step with the
+step's device batch (uint8 images, labels, mask): the seam VAAL trains
+its VAE and discriminator through (JAX ``trainer.py:1070``, ``:1371``).
+
 Not ported yet (ROADMAP.md): the device-resident and epoch-scan feeds,
-the mid-round fit state and its resume, and VAAL's ``batch_hook``.
+and the mid-round fit state and its resume.
 """
 
 from __future__ import annotations
@@ -200,8 +204,9 @@ class Trainer:
             al_set: Dataset, eval_idxs: np.ndarray, n_epoch: int,
             es_patience: int, rng: np.random.Generator, round_idx: int = 0,
             weight_paths: Optional[Dict[str, str]] = None,
-            metric_cb: Optional[Callable[[str, float, int], None]] = None
-            ) -> FitResult:
+            metric_cb: Optional[Callable[[str, float, int], None]] = None,
+            batch_hook: Optional[Callable[[int, Dict[str, torch.Tensor]],
+                                          None]] = None) -> FitResult:
         """Train on ``train_set[labeled_idxs]`` with per-epoch validation
         on ``al_set[eval_idxs]`` and early stopping.  ``es_patience == 0``
         disables early stopping; the final weights are then the best.
@@ -230,11 +235,13 @@ class Trainer:
                     train_set, labeled_idxs, bs, shuffle=True, rng=rng,
                     num_threads=self.cfg.loader_tr.num_workers,
                     prefetch=self.cfg.loader_tr.prefetch):
-                loss, gnorm = self.train_step(
-                    self.to_device(batch), lr, class_weights,
-                    train_set.view, generator)
+                dev_batch = self.to_device(batch)
+                loss, gnorm = self.train_step(dev_batch, lr, class_weights,
+                                              train_set.view, generator)
                 losses.append(loss)
                 gnorms.append(gnorm)
+                if batch_hook is not None:
+                    batch_hook(epoch, dev_batch)
             record = {"epoch": epoch, "lr": lr,
                       "train_loss": (torch.stack(losses).mean()
                                      if losses else 0.0),

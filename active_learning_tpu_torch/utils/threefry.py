@@ -1,6 +1,8 @@
-"""The pieces of JAX's default PRNG that the k-center D² draw uses, in
-torch: ``PRNGKey``, ``split``, 32-bit ``random_bits``, ``uniform`` and
-the Gumbel noise of ``jax.random.categorical``.
+"""The pieces of JAX's default PRNG that the port draws with, in torch:
+``PRNGKey``, ``split``, ``fold_in``, 32-bit ``random_bits``,
+``randint``, ``uniform`` and the Gumbel noise of
+``jax.random.categorical`` (the k-center D² draw, and VAAL's scoring
+crop window).
 
 They follow JAX 0.9.0 with ``jax_default_prng_impl = threefry2x32`` and
 ``jax_threefry_partitionable = True`` (``jax/_src/prng.py``,
@@ -10,8 +12,14 @@ package's pick from the same seed:
 * a key is two uint32 words, ``(seed >> 32, seed & 0xffffffff)``;
 * ``split(key, n)[i]`` is the Threefry-2x32 hash of the counter pair
   ``(0, i)`` under ``key``, both output words;
+* ``fold_in(key, data)`` is the hash of the pair ``(0, data)`` under
+  ``key``, both output words (``data`` as a uint32);
 * ``random_bits(key, n)[i]`` hashes the 64-bit counter ``i`` as the pair
   ``(i >> 32, i & 0xffffffff)`` and xors the two output words;
+* ``randint(key, lo, hi)`` splits ``key`` in two, draws 32 bits from
+  each and folds them into ``[lo, hi)`` as ``(hi_bits % span · m +
+  lo_bits % span) % span`` with ``m = (2**16 % span)² % span``, every
+  product and sum wrapping in uint32 as JAX's do;
 * ``uniform`` puts the top 23 bits into the mantissa of a float in
   [1, 2), subtracts 1, scales to ``[minval, maxval)`` and clamps at
   ``minval``;
@@ -78,12 +86,32 @@ def split(key: Key, n: int) -> np.ndarray:
     return torch.stack([b0, b1], dim=1).numpy().astype(np.uint32)
 
 
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)``."""
+    b0, b1 = threefry2x32(key, torch.zeros(1, dtype=torch.int64),
+                          torch.tensor([int(data) & _MASK]))
+    return int(b0[0]), int(b1[0])
+
+
 def random_bits(key: Key, n: int, device: Device = None) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)``, as int64 holding the
     uint32 values."""
     hi, lo = _counters(n, device)
     b0, b1 = threefry2x32(key, hi, lo)
     return b0 ^ b1
+
+
+def randint(key: Key, minval: int, maxval: int) -> int:
+    """``jax.random.randint(key, (), minval, maxval)`` for int32 bounds:
+    ``minval`` when ``maxval <= minval``."""
+    k1, k2 = (tuple(int(w) for w in k) for k in split(key, 2))
+    higher = int(random_bits(k1, 1)[0])
+    lower = int(random_bits(k2, 1)[0])
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    half = 2 ** 16 % span
+    multiplier = ((half * half) & _MASK) % span
+    offset = (((higher % span) * multiplier) & _MASK) + lower % span
+    return int(minval + (offset & _MASK) % span)
 
 
 def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:

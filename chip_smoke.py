@@ -80,6 +80,31 @@ user calls, and fails (non-zero exit) if any phase fails:
 10. The CLI on the card with BASESampler, PartitionedCoresetSampler and
     PartitionedBADGESampler (--partitions 2; SSLResNet18, synthetic, 2
     rounds).
+11. Kernel H (``ops/balancing``, CUDA: the balancing pick) against its
+    plain version at 20,431 x 512 and 50,000 x 512 with 10 classes and
+    130,000 x 2048 with 1000 (the majority mask of an exp-0.1 skewed
+    count vector), with and without an empty rarest class, and the edge
+    cases (ties to the lower index, ineligible rows, a row on a majority
+    centroid).  Picks equal, or the two scores within the stated f32
+    bound (printed).  Timed beside its plain version, its bound and the
+    library form (addmm + amax + argmin).
+12. BalancingSampler at the imbalanced CIFAR sweep's width: full-width
+    SSLResNet18 (CIFAR stem, 10 classes, seeded), a 20,431-row 32-px
+    pool, 1,000 labeled rows in exp-0.1 proportions, budget 1,000; the
+    query through kernel H, then again with the plain version
+    substituted: picks equal.  Wall time, balancing vs random picks,
+    H's launches, host syncs, peak memory.
+13. VAAL at the ImageNet sweep's width: full-width SSLResNet50 (224 px,
+    default/imagenet, B=128, from scratch) with the VAE at crop 64, z =
+    64: ``Trainer.fit`` with the co-step hook over 512 labeled rows (2
+    epochs), co-step and classifier step times, launches of A-D, kernels
+    B and C held on every VAE shape they took; a query of 200 over the
+    rest of a 2,600-row pool; one float32 co-step and the score step on
+    the card against the CPU.
+14. BalancingSampler, MarginClusteringSampler and VAALSampler through
+    the CLI on the card (2 rounds) and with --device cpu (round-0
+    indices equal); first kernels H, B and C held on the inputs the
+    CLI's training and queries give them in this process.
 
 Prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -1774,27 +1799,31 @@ def _copy(x):
     return x
 
 
-def recording_kernel_inputs():
-    """Within the context, kernels E, F and G's entry points as the
-    strategies call them keep a copy of their inputs, taken before the
-    call (E updates min_dist and selectable in place), for the first
-    call of each distinct argument shape; launches are counted as
-    always.  Yields {entry point: [args, ...]}."""
+def recording_kernel_inputs(targets=None, keep=None):
+    """Within the context, the kernel entry points ``targets`` ((module,
+    name) pairs; by default kernels E, F and G's as the strategies call
+    them) keep a copy of their inputs, taken before the call (E updates
+    min_dist and selectable in place), for the first call of each
+    distinct argument shape that ``keep(name, args)`` accepts (all by
+    default); launches are counted as always.  Yields {entry point:
+    [args, ...]}."""
     import contextlib
 
     from active_learning_tpu_torch.ops import kcenter as kc
     from active_learning_tpu_torch.strategies import scoring
 
-    targets = [(kc, n) for n in ("fold_select", "fold_draw", "min_fold")] + \
-        [(scoring, n) for n in ("badge_factors", "boundary_radii",
-                                "head_pair_norms")]
+    if targets is None:
+        targets = [(kc, n) for n in ("fold_select", "fold_draw",
+                                     "min_fold")] + \
+            [(scoring, n) for n in ("badge_factors", "boundary_radii",
+                                    "head_pair_norms")]
     calls = {n: [] for _, n in targets}
     seen = set()
 
     def wrap(name, fn):
         def recorded(*args):
             key = (name, _sig(args))
-            if key not in seen:
+            if key not in seen and (keep is None or keep(name, args)):
                 seen.add(key)
                 calls[name].append(_copy(args))
             return fn(*args)
@@ -1901,6 +1930,655 @@ def run_cli_geometry(tmp: str):
         log(f"CLI {name} on the card: {run['wall_s']:.1f} s, launches "
             f"{ {k: v for k, v in run['launches'].items() if v} }")
         out[name] = {"wall_s": run["wall_s"], "launches": run["launches"],
+                     "phase_times": run["phase_times"]}
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return out, total
+
+
+# -- phase 11: kernel H against its plain version -----------------------------
+
+BAL_SHAPES = ((20431, 512, 10), (50000, 512, 10), (130000, 2048, 1000))
+
+
+def _bal_inputs(dev, n, d, c, seed):
+    """Seeded pool rows and centroids on the card, 70% of the rows
+    eligible, and the majority mask of an exp-0.1 skewed count vector
+    (the imbalanced sweep's profile, ``data/imbalance.py``): classes
+    above the mean count are the majority, the last class the rarest."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.randn(n, d, device=dev, generator=g)
+    centers = torch.randn(c, d, device=dev, generator=g) * 0.5
+    eligible = torch.rand(n, device=dev, generator=g) > 0.3
+    counts = np.round(5000 * 0.1 ** (np.arange(c) / max(c - 1, 1)))
+    maj = torch.from_numpy(counts > counts.mean()).to(dev)
+    return emb, eligible, centers, maj, int(np.argmin(counts))
+
+
+def _hold_pick(args, rare_empty, where, detail, path):
+    """Kernel H's pick against its plain version's on the same inputs:
+    equal, or the two rows' plain scores within ``score_tolerance`` of
+    each other (printed).  Returns the score gap (0 when equal)."""
+    from active_learning_tpu_torch.ops import balancing as ob
+
+    got = int(ob.balancing_pick(*args, rare_empty))
+    want = int(ob.balancing_pick_reference(*args, rare_empty))
+    gap = tol = 0.0
+    if got != want:
+        emb, eligible, centers, maj, rarest = args
+        scores = ob.balancing_scores_reference(*args, rare_empty)
+        bound = ob.score_tolerance(emb, centers, maj, rarest, rare_empty)
+        gap = float((scores[got] - scores[want]).abs())
+        tol = float(bound[got] + bound[want])
+        log(f"kernel H at {where}: pick {got} != plain {want}, scores "
+            f"{float(scores[got])!r} vs {float(scores[want])!r}, gap "
+            f"{gap:.3g} within the f32 bound {tol:.3g}: {gap <= tol}")
+        if not (bool(eligible[got]) and gap <= tol):
+            raise AssertionError(f"kernel H at {where}: pick {got}, plain "
+                                 f"{want}, gap {gap} > bound {tol}")
+    detail.append({"kernel": "balancing", "path": path, "where": where,
+                   "pick": got, "plain_pick": want, "score_gap": gap,
+                   "bound": tol})
+    return gap
+
+
+def check_balancing(dev, detail):
+    """Kernel H at the three phase-11 shapes and the edge cases, timed
+    beside its plain version, its bound and the library form (addmm +
+    amax + argmin, TF32 off).  Returns (max score gap, times at the
+    imbalanced CIFAR shape, times by shape)."""
+    from active_learning_tpu_torch.device import full_float32
+    from active_learning_tpu_torch.ops import balancing as ob
+
+    worst, by_shape = 0.0, {}
+    for i, (n, d, c) in enumerate(BAL_SHAPES):
+        args = _bal_inputs(dev, n, d, c, SEED + i)
+        where = f"N={n} D={d} C={c}"
+        for rare_empty in (False, True):
+            worst = max(worst, _hold_pick(args, rare_empty,
+                                          f"{where} rare_empty={rare_empty}",
+                                          detail, "phase11"))
+        emb, eligible, centers, maj, rarest = args
+
+        def library():
+            with full_float32():
+                cm = centers[maj]
+                d_rare = ((emb - centers[rarest]) ** 2).sum(dim=1)
+                d_maj = torch.addmm((cm * cm).sum(dim=1), emb, cm.T,
+                                    alpha=-2.0)
+                norm = torch.amax(d_maj, dim=1) + (emb * emb).sum(dim=1)
+                return torch.argmin(torch.where(
+                    eligible, d_rare / norm, torch.full_like(norm,
+                                                             float("inf"))))
+
+        reps = 10 if n * c > 10 ** 7 else N_TIMED
+        n_maj = int(maj.sum())
+        times = {"ms": cuda_ms(lambda: ob.balancing_pick(*args, False), reps),
+                 "plain_ms": cuda_ms(
+                     lambda: ob.balancing_pick_reference(*args, False), reps),
+                 "library_ms": cuda_ms(library, reps),
+                 **_bound(n * d * 4 + n + c * d * 4 + c + 8,
+                          2.0 * n * d * (n_maj + 1)),
+                 "majority_classes": n_maj}
+        by_shape[where] = times
+        log(f"kernel H at {where} ({n_maj} majority classes): "
+            f"{times['ms']:.4f} ms (plain {times['plain_ms']:.4f}, library "
+            f"{times['library_ms']:.4f}, bound {times['bound_ms']:.4f} by "
+            f"{times['bound_by']})")
+        if i == 0:
+            # Edge cases at the imbalanced CIFAR width.
+            emb, eligible, centers, maj, rarest = (
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+            args = (emb, eligible, centers, maj, rarest)
+            best = int(ob.balancing_pick(*args, False))
+            lo = max(best - 5, 0)
+            emb[lo:best] = emb[best]  # duplicates: the lowest index wins
+            eligible[lo:best + 1] = True
+            if int(ob.balancing_pick(*args, False)) != lo:
+                raise AssertionError("kernel H: a tie did not go to the "
+                                     "lower index")
+            worst = max(worst, _hold_pick(args, False, f"{where} ties",
+                                          detail, "phase11"))
+            eligible[lo:best + 1] = False  # ineligible rows never win
+            if int(ob.balancing_pick(*args, False)) in range(lo, best + 1):
+                raise AssertionError("kernel H picked an ineligible row")
+            worst = max(worst, _hold_pick(args, False,
+                                          f"{where} ineligible", detail,
+                                          "phase11"))
+            eligible[:] = True
+            emb[7] = centers[int(maj.nonzero()[0, 0])]
+            for rare_empty in (False, True):
+                worst = max(worst, _hold_pick(
+                    args, rare_empty,
+                    f"{where} row on a majority centroid, rare_empty="
+                    f"{rare_empty}", detail, "phase11"))
+        del args, emb, eligible, centers
+        torch.cuda.empty_cache()
+    log(f"kernel H checks passed: max score gap {worst:.3g}")
+    main = dict(by_shape[f"N={BAL_SHAPES[0][0]} D={BAL_SHAPES[0][1]} "
+                         f"C={BAL_SHAPES[0][2]}"])
+    return worst, main, by_shape
+
+
+# -- phase 12: BalancingSampler at the imbalanced CIFAR sweep's width ---------
+
+def _h_targets():
+    from active_learning_tpu_torch.strategies import balancing as sb
+    return [(sb, "balancing_pick")]
+
+
+def _bc_targets():
+    from active_learning_tpu_torch.ops import bn_act as ba
+    from active_learning_tpu_torch.ops import bn_train as bt
+    return [(bt, "bn_stats"), (bt, "bn_bwd_reduce"), (bt, "bn_dx"),
+            (ba, "bn_act")]
+
+
+def check_recorded_h(calls, detail, path):
+    """Kernel H against its plain version on the inputs a path gave it."""
+    if not calls["balancing_pick"]:
+        raise AssertionError(f"path {path}: no call of kernel H recorded")
+    worst = 0.0
+    for emb, eligible, centers, maj, rarest, rare_empty in \
+            calls["balancing_pick"]:
+        where = (f"{path} N={emb.shape[0]} D={emb.shape[1]} "
+                 f"C={centers.shape[0]}")
+        worst = max(worst, _hold_pick((emb, eligible, centers, maj, rarest),
+                                      rare_empty, where, detail, path))
+    log(f"kernel H held at the {path} path's "
+        f"{len(calls['balancing_pick'])} recorded inputs: max score gap "
+        f"{worst:.3g}")
+    return worst
+
+
+def check_recorded_bn(calls, detail, path):
+    """Kernels B and C against their plain versions on the inputs a path
+    gave them: the statistics and backward sums within 1e-5 of the sum
+    of the terms' magnitudes (as ``check_bn_train``), dx bit-equal from
+    the same coefficients, kernel B within 1e-6 of its terms (plus one
+    bf16 ulp in bf16, as ``check_bn_act``).  Returns (B err, C err)."""
+    from active_learning_tpu_torch.ops import bn_act as ba
+    from active_learning_tpu_torch.ops import bn_train as bt
+
+    for name in ("bn_stats", "bn_bwd_reduce", "bn_dx", "bn_act"):
+        if not calls[name]:
+            raise AssertionError(f"path {path}: no call of {name} recorded")
+    dims = (0, 2, 3)
+    err_b = err_c = 0.0
+    for (x,) in calls["bn_stats"]:
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        inv = float(np.float32(1.0) / np.float32(n))
+        xf = x.float()
+        for got, ref, mag in zip(bt.bn_stats(x),
+                                 bt.channel_sums_reference(x, x, inv),
+                                 (xf.abs().sum(dims) * inv,
+                                  (xf * xf).sum(dims) * inv)):
+            diff = (got - ref).abs()
+            if bool((diff > 1e-5 * mag + 1e-30).any()):
+                raise AssertionError(f"{path} bn_stats {tuple(x.shape)}: "
+                                     f"{diff.max().item()}")
+            err_c = max(err_c, diff.max().item())
+    for gy, x in calls["bn_bwd_reduce"]:
+        gf, xf = gy.float(), x.float()
+        for got, ref, mag in zip(bt.bn_bwd_reduce(gy, x),
+                                 bt.channel_sums_reference(gy, x),
+                                 (gf.abs().sum(dims),
+                                  (gf * xf).abs().sum(dims))):
+            diff = (got - ref).abs()
+            if bool((diff > 1e-5 * mag + 1e-30).any()):
+                raise AssertionError(f"{path} bn_bwd_reduce "
+                                     f"{tuple(x.shape)}: {diff.max()}")
+            err_c = max(err_c, diff.max().item())
+    for args in calls["bn_dx"]:
+        if not torch.equal(bt.bn_dx(*args), bt.bn_dx_reference(*args)):
+            raise AssertionError(f"{path} bn_dx {tuple(args[0].shape)}: "
+                                 "not bit-equal")
+    for x, coeffs, res, relu in calls["bn_act"]:
+        got = ba.bn_act(x, coeffs, res, relu).float()
+        ref = ba.bn_act_reference(x, coeffs, res, relu).float()
+        shift, mul, add = (v.view(1, -1, 1, 1) for v in coeffs)
+        tol = 1e-6 * ((x.float() - shift).abs() * mul.abs() + add.abs()
+                      + (0 if res is None else res.float().abs()))
+        if x.dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(torch.maximum(got.abs(), ref.abs()))
+        diff = (got - ref).abs()
+        if bool((diff > tol).any()):
+            raise AssertionError(f"{path} bn_act {tuple(x.shape)} "
+                                 f"{x.dtype}: {diff.max().item()}")
+        err_b = max(err_b, diff.max().item())
+    shapes = sorted({(tuple(a[0].shape), str(a[0].dtype))
+                     for v in calls.values() for a in v
+                     if isinstance(a[0], torch.Tensor) and a[0].ndim == 4})
+    detail.append({"kernel": "bn_act+bn_train", "path": path,
+                   "shapes": [list(s) for s in shapes],
+                   "bn_act_err": err_b, "bn_train_err": err_c})
+    log(f"kernels B and C held at the {path} path's recorded inputs "
+        f"({len(shapes)} shapes: {shapes}): bn_act max err {err_b:.3g}, "
+        f"bn_train sums max err {err_c:.3g}, dx bit-equal")
+    return err_b, err_c
+
+
+def run_balancing_path(dev, n_pool=20431, n_lab=1000, budget=1000):
+    """BalancingSampler.query at the imbalanced CIFAR sweep's width:
+    full-width SSLResNet18 (CIFAR stem, 10 classes, bf16, seeded), a
+    synthetic 32-px pool of ``n_pool`` rows, ``n_lab`` labeled rows with
+    the exp-0.1 class proportions, budget ``budget``.  Run once through
+    kernel H (counters zeroed before, read after; H's inputs recorded),
+    then twice more from the same state: with the plain version
+    substituted, and in lockstep (kernel H's pick taken, the plain
+    version's on the same state beside it).  Every lockstep
+    disagreement must be a float32 near-tie within ``score_tolerance``;
+    the plain run's picks are reported equal, or where they part."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.config import ExperimentConfig
+    from active_learning_tpu_torch.data.synthetic import get_data_synthetic
+    from active_learning_tpu_torch.experiment import driver
+    from active_learning_tpu_torch.experiment.arg_pools import \
+        get_train_config
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.resnet import init_weights
+    from active_learning_tpu_torch.ops import balancing as ob
+    from active_learning_tpu_torch.strategies import balancing as sb
+
+    t0 = time.perf_counter()
+    data = get_data_synthetic(n_train=n_pool, n_test=8, image_size=32,
+                              num_classes=10, seed=SEED)
+    model = get_network("cifar10", "SSLResNet18", device=dev)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    train_cfg = get_train_config("default", "cifar10")
+    targets = data[0].targets
+    props = 0.1 ** (np.arange(10) / 9)
+    counts = np.floor(props / props.sum() * n_lab).astype(int)
+    counts[0] += n_lab - counts.sum()
+    log(f"balancing path set-up: {time.perf_counter() - t0:.1f} s; labeled "
+        f"counts {counts.tolist()}")
+
+    def strategy(tmp):
+        cfg = ExperimentConfig(dataset="synthetic",
+                               strategy="BalancingSampler",
+                               round_budget=budget, init_pool_size=0,
+                               device=dev.type, ckpt_path=tmp, log_dir=tmp)
+        strat = driver.build_experiment(cfg, data=data, train_cfg=train_cfg,
+                                        model=model)
+        rng = np.random.default_rng(SEED + 1)
+        avail = strat.available_query_mask()
+        lab = np.concatenate([
+            rng.choice(np.flatnonzero((targets == c) & avail), k,
+                       replace=False) for c, k in enumerate(counts)])
+        strat.update(lab, len(lab))
+        return strat
+
+    embs, steps = {}, []
+
+    def lockstep(*args):
+        """Kernel H's pick, with the plain version's on the same state
+        beside it; a disagreement is recorded with both plain scores."""
+        got = ob.balancing_pick(*args)
+        want = int(ob.balancing_pick_reference(*args))
+        steps.append(int(got) == want)
+        if int(got) != want:
+            emb, eligible, centers, maj, rarest, rare_empty = args
+            scores = ob.balancing_scores_reference(*args)
+            bound = ob.score_tolerance(emb, centers, maj, rarest, rare_empty)
+            # The two rows' scores in float64: which one is the exact
+            # argmin.
+            rows = torch.tensor([int(got), want], device=emb.device)
+            exact = ob.balancing_scores_reference(
+                emb[rows].double(), eligible[rows], centers.double(), maj,
+                rarest, rare_empty)
+            mismatches.append({
+                "balancing_pick": len(steps), "pick": int(got),
+                "plain_pick": want, "score": float(scores[int(got)]),
+                "plain_score": float(scores[want]),
+                "gap": float((scores[int(got)] - scores[want]).abs()),
+                "bound": float(bound[int(got)] + bound[want]),
+                "float64_scores": [float(v) for v in exact]})
+        return got
+
+    mismatches = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bal_") as tmp:
+        strat = strategy(tmp)
+        real = strat._all_embeddings
+
+        def scored():
+            t = time.perf_counter()
+            embs["e"] = real()
+            torch.cuda.synchronize()
+            embs["scoring_s"] = time.perf_counter() - t
+            return embs["e"]
+
+        strat._all_embeddings = scored
+        avail = strat.available_query_mask()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_kernel_launches()
+        with recording_kernel_inputs(_h_targets()) as calls:
+            t0 = time.perf_counter()
+            picks, cost = strat.query(budget)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = ops.kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_bal = strat.last_balancing_picks
+        batches = -(-n_pool // strat._score_batch_size())
+        runs = {}
+        for name, fn in (("plain", ob.balancing_pick_reference),
+                         ("lockstep", lockstep)):
+            again = strategy(tmp)
+            again._all_embeddings = lambda: embs["e"]
+            sb.balancing_pick = fn
+            try:
+                t0 = time.perf_counter()
+                runs[name] = np.asarray(again.query(budget)[0])
+                torch.cuda.synchronize()
+                runs[name + "_wall"] = time.perf_counter() - t0
+            finally:
+                sb.balancing_pick = ob.balancing_pick
+            del again
+    picks = np.asarray(picks)
+    if not (cost == budget == np.unique(picks).size and avail[picks].all()):
+        raise AssertionError(f"balancing query: {cost} picks, "
+                             f"{np.unique(picks).size} distinct")
+    on_card = dev.type == "cuda"  # a CPU rehearsal launches nothing
+    if launches["balancing_pick"] != (n_bal if on_card else 0) or n_bal < 1:
+        raise AssertionError(f"balancing query: {n_bal} balancing picks, "
+                             f"kernel H launches {launches}")
+    for m in mismatches:
+        log(f"balancing query: at balancing pick {m['balancing_pick']} "
+            f"kernel H picks row {m['pick']} (plain score {m['score']!r}), "
+            f"the plain version row {m['plain_pick']} (score "
+            f"{m['plain_score']!r}): gap {m['gap']:.3g} within the f32 "
+            f"bound {m['bound']:.3g}: {m['gap'] <= m['bound']}; in float64 "
+            f"{m['float64_scores']}")
+        if m["gap"] > m["bound"]:
+            raise AssertionError(f"balancing query: kernel H disagrees with "
+                                 f"the plain version beyond the bound: {m}")
+    # The lockstep run takes kernel H's picks: it must retrace the main
+    # run, and every disagreement with the plain version on the same
+    # state must be a float32 near-tie.
+    if not np.array_equal(runs["lockstep"], picks) or len(steps) != n_bal:
+        raise AssertionError("balancing query: the lockstep run did not "
+                             "retrace the main run")
+    plain_equal = bool(np.array_equal(runs["plain"], picks))
+    first = None if plain_equal else int(
+        np.flatnonzero(runs["plain"] != picks)[0])
+    log(f"balancing query: kernel H against the plain version on the same "
+        f"state at all {n_bal} balancing picks: {len(mismatches)} "
+        f"disagreements (each a near-tie within the bound); the plain "
+        f"version's own run ({runs['plain_wall']:.2f} s) "
+        + (f"picks the same {budget} rows" if plain_equal else
+           f"follows the same picks up to pick {first}, then its own "
+           "trajectory"))
+    picked = np.bincount(targets[picks], minlength=10)
+    out = {"wall_s": wall, "plain_wall_s": runs["plain_wall"],
+           "plain_picks_equal": plain_equal, "plain_first_difference": first,
+           "lockstep_disagreements": mismatches, "budget": budget,
+           "balancing_picks": n_bal, "random_picks": budget - n_bal,
+           "host_syncs": n_bal + batches, "scoring_batches": batches,
+           "scoring_s": embs["scoring_s"],
+           "peak_gib": peak, "launches": launches,
+           "picked_per_class": picked.tolist()}
+    log(f"balancing query: {budget} picks over {int(avail.sum())} rows in "
+        f"{wall:.2f} s (scoring pass {embs['scoring_s']:.2f} s; {n_bal} "
+        f"balancing, {budget - n_bal} random; kernel H "
+        f"launches {launches['balancing_pick']}; host syncs {n_bal} picks + "
+        f"{batches} scoring batches; peak {peak:.2f} GiB); picked per class "
+        f"{picked.tolist()}")
+    del model, data, strat
+    torch.cuda.empty_cache()
+    return out, calls
+
+
+# -- phase 13: VAAL at the ImageNet sweep's width ------------------------------
+
+def run_vaal_path(dev, n_pool=2600, n_lab=512, budget=200,
+                  model_name="SSLResNet50", image_size=224):
+    """VAALSampler on full-width SSLResNet50 (1000 classes, 224 px, bf16,
+    from scratch, default/imagenet, B=128) with the VAE at crop 64, z =
+    64: ``Trainer.fit`` with the co-step hook over ``n_lab`` labeled rows
+    (2 epochs), each co-step and classifier step timed (synchronized),
+    kernels B and C recording their float32 (VAE) inputs; then a query
+    of ``budget`` over the rest of an ``n_pool``-row pool, both under
+    the CLI's float32 settings.  Counters are zeroed before each and
+    read after."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.config import ExperimentConfig
+    from active_learning_tpu_torch.data.synthetic import get_data_synthetic
+    from active_learning_tpu_torch.experiment import driver
+    from active_learning_tpu_torch.experiment.arg_pools import \
+        get_train_config
+    from active_learning_tpu_torch.models.factory import get_network
+
+    t0 = time.perf_counter()
+    data = get_data_synthetic(n_train=n_pool, n_test=8,
+                              image_size=image_size, num_classes=1000,
+                              seed=SEED)
+    model = get_network("imagenet", model_name, device=dev)
+    train_cfg = get_train_config("default", "imagenet")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vaal_")
+    cfg = ExperimentConfig(dataset="synthetic", strategy="VAALSampler",
+                           round_budget=budget, init_pool_size=n_lab,
+                           n_epoch=2, early_stop_patience=0,
+                           device=dev.type, ckpt_path=tmp, log_dir=tmp)
+    strat = driver.build_experiment(cfg, data=data, train_cfg=train_cfg,
+                                    model=model)
+    strat.init_network_weights()
+    log(f"VAAL path set-up (pool of {n_pool} rows, models): "
+        f"{time.perf_counter() - t0:.1f} s; crop {strat.crop}, z "
+        f"{strat.z_dim}, scoring window {strat.score_window}")
+    co_ms, cls_ms = [], []
+
+    def timed(fn, into):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    strat.co_step = timed(strat.co_step, co_ms)
+    strat.trainer.train_step = timed(strat.trainer.train_step, cls_ms)
+    # The CLI runs a bf16 classifier under PyTorch's default float32
+    # settings (cuDNN convolutions in TF32, matmuls not), so the VAE's
+    # float32 convolutions do too; phase 3's float32 check turned TF32
+    # off for this process, so the phase restores the defaults.
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    with recording_kernel_inputs(
+            _bc_targets(),
+            keep=lambda name, args: args[0].dtype == torch.float32) as calls:
+        t0 = time.perf_counter()
+        strat.train()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    fit_launches = ops.kernel_launches()
+    del strat.co_step, strat.trainer.train_step
+    need = ("bn_train_stats", "bn_train_bwd_reduce", "bn_train_dx", "bn_act",
+            "fused_sgd")
+    on_card = dev.type == "cuda"  # a CPU rehearsal launches nothing
+    if any(fit_launches[k] < on_card for k in need) or len(co_ms) < 1:
+        raise AssertionError(f"VAAL fit: launches {fit_launches}, "
+                             f"{len(co_ms)} co-steps")
+    vae_loss, d_loss = strat.last_losses
+    if not (np.isfinite(vae_loss) and np.isfinite(d_loss)):
+        raise AssertionError(f"VAAL losses {strat.last_losses}")
+    avail = strat.available_query_mask()
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    picks, cost = strat.query(budget)
+    torch.cuda.synchronize()
+    q_wall = time.perf_counter() - t0
+    q_launches = ops.kernel_launches()
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+    picks = np.asarray(picks)
+    if not (cost == budget == np.unique(picks).size and avail[picks].all()
+            and q_launches["bn_act"] >= on_card):
+        raise AssertionError(f"VAAL query: {cost} picks, launches "
+                             f"{q_launches}")
+    out = {"fit_s": fit_s, "co_steps": len(co_ms),
+           "co_step_ms": co_ms, "classifier_step_ms": cls_ms,
+           "co_step_ms_median": float(np.median(co_ms)),
+           "classifier_step_ms_median": float(np.median(cls_ms)),
+           "losses": [vae_loss, d_loss], "fit_launches": fit_launches,
+           "query_wall_s": q_wall, "scored_rows": int(avail.sum()),
+           "query_launches": q_launches}
+    abcd = ("prob_stats", "bn_act", "bn_train_stats", "bn_train_bwd_reduce",
+            "bn_train_dx", "fused_sgd")
+    log(f"VAAL fit: {len(cls_ms)} classifier steps + {len(co_ms)} co-steps "
+        f"in {fit_s:.1f} s; step medians: co-step "
+        f"{out['co_step_ms_median']:.1f} ms, classifier "
+        f"{out['classifier_step_ms_median']:.1f} ms; last losses "
+        f"{[round(v, 4) for v in strat.last_losses]}; launches A-D "
+        f"{ {k: fit_launches[k] for k in abcd} }")
+    log(f"VAAL query: {budget} picks over {int(avail.sum())} rows in "
+        f"{q_wall:.2f} s; launches "
+        f"{ {k: v for k, v in q_launches.items() if v} }")
+    rows = data[2].gather(np.arange(32))
+    view, window = strat.al_set.view, strat.score_window
+    del strat, model, data
+    torch.cuda.empty_cache()
+    return out, calls, (rows, view, window)
+
+
+def check_vaal_f32_against_cpu(rows, view, window, b=8,
+                               devices=("cuda", "cpu")):
+    """One co-step (crop 64, z 64, B = ``b`` with two padding rows) and
+    the score step in float32 on the card (TF32 off) and on the CPU from
+    the same seeded weights and inputs.  Losses within 1e-3 relative
+    (float32 convolutions in another order, and the first Adam step's
+    undetermined signs, which move the discriminator step's forwards);
+    then, on the card's updated weights loaded into both, d_score within
+    1e-5 and the 16 lowest picks equal where neighbours are further
+    apart than 2e-5 (``rows``: uint8 224-px rows)."""
+    from active_learning_tpu_torch.data.augment import apply_view
+    from active_learning_tpu_torch.device import set_float32_precision
+    from active_learning_tpu_torch.models.vaal import crop_window
+    from active_learning_tpu_torch.strategies import vaal as sv
+
+    set_float32_precision(torch.float32)
+    z, crop = 64, 64
+    ref = sv.VAALModels(z, crop, "cpu")
+    ref.reinit(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    x_l, x_u = (torch.from_numpy(rng.normal(size=(b, crop, crop, 3)).astype(
+        np.float32)) for _ in range(2))
+    m_l = torch.ones(b)
+    m_l[-2:] = 0.0
+    m_u = torch.ones(b)
+    eps = [torch.from_numpy(rng.normal(size=(b, z)).astype(np.float32))
+           for _ in range(4)]
+    models, losses = [], []
+    for device in devices:
+        m = sv.VAALModels(z, crop, device)
+        m.vae.load_state_dict(ref.vae.state_dict())
+        m.disc.load_state_dict(ref.disc.state_dict())
+        losses.append([float(v) for v in sv.vaal_step(
+            m, x_l.to(device), x_u.to(device), m_l.to(device),
+            m_u.to(device), [e.to(device) for e in eps], 5e-5, 1e-3, 10.0)])
+        models.append(m)
+    for a, c in zip(*losses):
+        if abs(a - c) > 1e-3 * abs(c):
+            raise AssertionError(f"VAAL f32 losses card {losses[0]} vs CPU "
+                                 f"{losses[1]}")
+    models[1].vae.load_state_dict(models[0].vae.state_dict())
+    models[1].disc.load_state_dict(models[0].disc.state_dict())
+    scores = []
+    for device, m in zip(devices, models):
+        x = crop_window(apply_view(torch.from_numpy(rows).to(device), view,
+                                   train=False), crop, *window)
+        m.vae.eval()
+        with torch.no_grad():
+            scores.append(m.disc(m.vae(x)[2]).reshape(-1).cpu().numpy())
+    err = float(np.abs(scores[0] - scores[1]).max())
+    k = min(16, len(rows) - 1)
+    order_c = np.argsort(scores[0], kind="stable")[:k]
+    order_p = np.argsort(scores[1], kind="stable")[:k]
+    apart = np.diff(np.sort(scores[1])[:k + 1]) > 2e-5
+    clear = apart.copy()  # apart from the next one
+    clear[1:] &= apart[:-1]  # and from the one before
+    if err > 1e-5 or not np.array_equal(order_c[clear], order_p[clear]):
+        raise AssertionError(f"VAAL f32 d_score card vs CPU: max err {err}, "
+                             f"picks {order_c} vs {order_p}")
+    log(f"VAAL f32 co-step card vs CPU: losses {losses[0]} vs {losses[1]}; "
+        f"d_score max err {err:.3g} over {len(rows)} rows, lowest-{k} picks "
+        f"equal ({int(clear.sum())} clear of ties)")
+    return {"losses_card": losses[0], "losses_cpu": losses[1],
+            "d_score_max_err": err}
+
+
+# -- phase 14: the last samplers through the CLI ------------------------------
+
+CLI_SAMPLERS = {
+    "BalancingSampler": ("balancing_pick", "bn_act", "bn_train_dx",
+                         "fused_sgd"),
+    "MarginClusteringSampler": ("prob_stats", "bn_act", "bn_train_dx",
+                                "fused_sgd"),
+    "VAALSampler": ("bn_act", "bn_train_stats", "bn_train_bwd_reduce",
+                    "bn_train_dx", "fused_sgd")}
+
+
+def record_cli_sampler_inputs():
+    """The inputs kernels H, B and C take on the cli_samplers path: each
+    sampler built in this process from the CLI's flags (SSLResNet18,
+    synthetic, 32 px), VAAL trained for its round 0 (the VAE's and the
+    classifier's BatchNorms), then each round-1 query run once."""
+    from active_learning_tpu_torch.experiment import cli, driver
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as tmp:
+        with recording_kernel_inputs(_h_targets() + _bc_targets()) as calls:
+            for name in CLI_SAMPLERS:
+                cfg = cli.parse([*_CLI_FLAGS, "--log_dir", tmp,
+                                 "--ckpt_path", tmp, "--strategy", name])
+                strat = driver.build_experiment(cfg)
+                if name == "VAALSampler":
+                    strat.init_network_weights()
+                    strat.train()
+                strat.round = 1
+                strat.query(cfg.round_budget)
+                del strat
+    torch.cuda.synchronize()
+    return calls
+
+
+def run_cli_samplers(tmp: str):
+    """The three samplers through the CLI on the card (2 rounds), and
+    with ``--device cpu`` for round 0 (one round, one epoch: round 0's
+    indices are drawn before any training): round-0 indices equal."""
+    out, total = {}, {}
+    for name, need in CLI_SAMPLERS.items():
+        run = _run_cli(os.path.join(tmp, name), ["--strategy", name])
+        cpu = _run_cli(os.path.join(tmp, name + "_cpu"),
+                       ["--strategy", name, "--device", "cpu", "--rounds",
+                        "1", "--n_epoch", "1"])
+        if run["tested"] != {0, 1}:
+            raise AssertionError(f"CLI {name}: rounds tested {run['tested']}")
+        if not (np.array_equal(run["round0"], cpu["round0"])
+                and np.array_equal(run["eval_idxs"], cpu["eval_idxs"])):
+            raise AssertionError(f"CLI {name}: round-0 indices differ "
+                                 "between card and CPU")
+        missing = [k for k in need if run["launches"][k] < 1]
+        if missing or any(cpu["launches"].values()):
+            raise AssertionError(f"CLI {name}: never launched {missing} on "
+                                 f"the card, or launched on the CPU "
+                                 f"{cpu['launches']}")
+        aux = os.path.exists(os.path.join(run["exp_dir"],
+                                          "aux_state.msgpack"))
+        if aux != (name == "VAALSampler"):
+            raise AssertionError(f"CLI {name}: aux_state.msgpack {aux}")
+        log(f"CLI {name} on the card: {run['wall_s']:.1f} s, launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }; with "
+            f"--device cpu (round 0) {cpu['wall_s']:.1f} s, round-0 indices "
+            "equal")
+        out[name] = {"wall_s": run["wall_s"], "cpu_wall_s": cpu["wall_s"],
+                     "launches": run["launches"],
                      "phase_times": run["phase_times"]}
         for k, v in run["launches"].items():
             total[k] = total.get(k, 0) + v
@@ -2014,6 +2692,37 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_geo_") as tmp:
         cli_geo, cli_geo_launches = run_cli_geometry(tmp)
 
+    # 11. Kernel H against its plain version.
+    t0 = time.perf_counter()
+    err_h, times_h, times_h_by_shape = check_balancing(dev, detail)
+    log(f"kernel H checks: {time.perf_counter() - t0:.1f} s")
+
+    # 12. BalancingSampler at the imbalanced CIFAR sweep's width; H held
+    # on the inputs the query gave it.
+    balancing, bal_calls = run_balancing_path(dev)
+    err_h = max(err_h, check_recorded_h(bal_calls, detail, "balancing"))
+    del bal_calls
+
+    # 13. VAAL at the ImageNet sweep's width; B and C held on the VAE's
+    # recorded inputs; the float32 co-step and score step card vs CPU.
+    vaal, vaal_calls, (vrows, vview, vwindow) = run_vaal_path(dev)
+    vb, vc = check_recorded_bn(vaal_calls, detail, "vaal_fit")
+    err_b, err_c = max(err_b, vb), max(err_c, vc)
+    del vaal_calls
+    torch.cuda.empty_cache()
+    vaal["f32"] = check_vaal_f32_against_cpu(vrows, vview, vwindow)
+
+    # 14. The three samplers through the CLI; first H, B and C held on
+    # the inputs the CLI's training and queries give them.
+    rec = record_cli_sampler_inputs()
+    err_h = max(err_h, check_recorded_h(rec, detail, "cli_samplers"))
+    rb, rc = check_recorded_bn(rec, detail, "cli_samplers")
+    err_b, err_c = max(err_b, rb), max(err_c, rc)
+    del rec
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_smp_") as tmp:
+        cli_smp, cli_smp_launches = run_cli_samplers(tmp)
+
     def total(runs):
         keys = next(iter(runs)).keys()
         return {k: sum(r[k] for r in runs) for k in keys}
@@ -2022,7 +2731,11 @@ def main() -> int:
              "cli": cli_run["launches"],
              "query": total([q["launches"] for q in query.values()]),
              "select": total(list(sel_launches.values())),
-             "cli_geometry": cli_geo_launches}
+             "cli_geometry": cli_geo_launches,
+             "balancing": balancing["launches"],
+             "vaal_fit": vaal["fit_launches"],
+             "vaal_query": vaal["query_launches"],
+             "cli_samplers": cli_smp_launches}
 
     def count(*names):
         by = {p: sum(v[n] for n in names) for p, v in paths.items()}
@@ -2071,6 +2784,11 @@ def main() -> int:
          "source": "active_learning_tpu_torch/csrc/badge.cu",
          "replaces": "active_learning_tpu/strategies/scoring.py:154",
          **count("badge_factors"), "max_abs_err": err_g, **times_g},
+        {"name": "balancing", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/balancing.cu",
+         "replaces": "active_learning_tpu/strategies/balancing.py:61",
+         **count("balancing_pick"), "max_abs_err": err_h, **times_h,
+         "ms_by_shape": times_h_by_shape},
     ]
     for k in kernels:
         if k["launches"] < 1:
@@ -2086,6 +2804,8 @@ def main() -> int:
                        "acquisition": {"query": query, "f32": geo_f32,
                                        "selection": selection,
                                        "cli": cli_geo},
+                       "samplers": {"balancing": balancing, "vaal": vaal,
+                                    "cli": cli_smp},
                        "checks": detail}, fh, indent=1, default=str)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -277,19 +277,21 @@ def test_badge_factors_class_limit():
 N_TRAIN, N_CLASSES, INIT, EVAL = 96, 4, 12, 8
 
 
-def _sampler_pair(name, seed=0, **cfg_kw):
+def _sampler_pair(name, seed=0, n_init=INIT, image_size=8, **cfg_kw):
     """The same sampler in both packages: the same synthetic pool, eval
-    split, labeled set, network weights and rng seed."""
+    split, labeled set (``n_init`` random rows), network weights and rng
+    seed."""
     jmodel, variables, model = _resnet_pair(N_CLASSES, seed=seed)
     jdata = jax_get_data(n_train=N_TRAIN, n_test=8, num_classes=N_CLASSES,
-                         image_size=8, seed=5)
+                         image_size=image_size, seed=5)
     data = get_data_synthetic(n_train=N_TRAIN, n_test=8,
-                              num_classes=N_CLASSES, image_size=8, seed=5)
+                              num_classes=N_CLASSES, image_size=image_size,
+                              seed=5)
     np.testing.assert_array_equal(jdata[2].images, data[2].images)
     rng = np.random.default_rng(seed + 100)
     eval_idxs = rng.choice(N_TRAIN, EVAL, replace=False)
     rest = np.setdiff1d(np.arange(N_TRAIN), eval_idxs)
-    init = rng.choice(rest, INIT, replace=False)
+    init = rng.choice(rest, n_init, replace=False)
 
     jtrainer = JaxTrainer(
         jmodel, JaxTrainConfig(loader_te=JaxLoaderConfig(batch_size=16),

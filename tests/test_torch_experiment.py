@@ -9,8 +9,11 @@ MarginSampler query, the command line, and the saved experiment state.
   round-0 labeled and eval indices are the JAX package's for the same
   flags, bit for bit (both come from numpy draws on the same seeds).
 * Each geometry sampler (MASE, BASE, Coreset, BADGE and the partitioned
-  two) runs the CLI for 2 rounds on the CPU: exit 0, and the round-1
-  query labels distinct rows outside round 0's and the eval split.
+  two), and Balancing, MarginClustering and VAAL, runs the CLI for 2
+  rounds on the CPU: exit 0, and the round-1 query labels distinct rows
+  outside round 0's and the eval split; VAAL also saves
+  ``aux_state.msgpack``.  The VAAL flags carry the JAX CLI's names and
+  defaults.
 * ``TrainConfig.score_batch_size`` set in an arg pool is the batch the
   scoring pass uses.
 """
@@ -142,7 +145,7 @@ def test_without_a_card_the_cli_raises(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--resume_training"], ["--stem", "s2d"], ["--grad_allreduce", "int8"],
-    ["--dataset", "cifar10"], ["--strategy", "VAALSampler"],
+    ["--dataset", "cifar10"], ["--imbalance_type", "exp"],
     ["--arg_pool", "ssp_finetuning"], ["--pool_sharding", "row"]])
 def test_flags_not_ported_exit_2_naming_the_roadmap(flags, capsys):
     # argparse keeps the last value of a repeated flag.
@@ -204,10 +207,7 @@ GEOMETRY = [("MASESampler", []), ("BASESampler", []),
             ("PartitionedBADGESampler", ["--partitions", "3"])]
 
 
-@pytest.mark.parametrize("strategy,extra", GEOMETRY,
-                         ids=[g[0] for g in GEOMETRY])
-def test_geometry_sampler_cli_runs_two_rounds_on_cpu(tmp_path, strategy,
-                                                     extra):
+def _two_rounds_on_cpu(tmp_path, strategy, extra):
     flags = [f for f in CLI_FLAGS if f != "MarginSampler"]
     flags[flags.index("--strategy") + 1:flags.index("--strategy") + 1] = [
         strategy]
@@ -229,6 +229,41 @@ def test_geometry_sampler_cli_runs_two_rounds_on_cpu(tmp_path, strategy,
                     / "experiment_state.npz")
     assert not np.isin(rounds[1], state["eval_idxs"]).any()
     assert int(state["labeled"].sum()) == 32
+
+
+@pytest.mark.parametrize("strategy,extra", GEOMETRY,
+                         ids=[g[0] for g in GEOMETRY])
+def test_geometry_sampler_cli_runs_two_rounds_on_cpu(tmp_path, strategy,
+                                                     extra):
+    _two_rounds_on_cpu(tmp_path, strategy, extra)
+
+
+@pytest.mark.parametrize("strategy", ["BalancingSampler",
+                                      "MarginClusteringSampler",
+                                      "VAALSampler"])
+def test_last_samplers_cli_run_two_rounds_on_cpu(tmp_path, strategy):
+    _two_rounds_on_cpu(tmp_path, strategy, [])
+    aux = tmp_path / "ckpt" / "active_learning_cpu0" / "aux_state.msgpack"
+    assert aux.exists() == (strategy == "VAALSampler")
+    if aux.exists():
+        tree = ckpt_lib.msgpack_restore(aux.read_bytes())
+        assert sorted(tree) == ["d_opt", "d_params", "vae_opt", "vae_params",
+                                "vae_stats"]
+        assert tree["vae_params"]["fc_mu"]["kernel"].shape == (1024 * 4, 64)
+
+
+def test_cli_carries_the_vaal_flags_with_the_jax_defaults():
+    from active_learning_tpu.experiment.cli import args_to_config as jax_cfg
+    from active_learning_tpu.experiment.cli import get_parser as jax_parser
+    for extra in ([], ["--vae_latent_dim", "32", "--adversary_param", "2.5",
+                       "--lr_vae", "1e-4", "--lr_discriminator", "2e-3"],
+                  ["--vaal_adversary_param", "3"]):
+        cfg = cli.parse(CLI_FLAGS + extra)
+        want = jax_cfg(jax_parser().parse_args(CLI_FLAGS + extra)).vaal
+        for name in ("vae_latent_dim", "adversary_param", "lr_vae",
+                     "lr_discriminator"):
+            assert getattr(cfg.vaal, name) == getattr(want, name), name
+    assert cli.parse(CLI_FLAGS).vaal.vae_latent_dim == 64
 
 
 def test_score_batch_size_in_an_arg_pool_is_the_scoring_batch(tmp_path,

@@ -1,11 +1,12 @@
 """The port stands alone: no module of ``active_learning_tpu_torch``, and
-nothing in ``chip_smoke.py``, imports jax, flax, optax, msgpack or the
-JAX package.
+nothing in ``chip_smoke.py``, imports jax, flax, optax, msgpack,
+scikit-learn (the card's machine has none) or the JAX package.
 
 Two checks: every port module imports in a fresh interpreter where those
 names are blocked in ``sys.modules``; and an AST scan of every import
 statement in the package and in ``chip_smoke.py``.  The modules of the
-training and acquisition slices are also named one by one.
+training, acquisition and last-samplers slices are also named one by
+one.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "active_learning_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
              "active_learning_tpu")
 
 
@@ -97,7 +98,14 @@ ACQUISITION_SLICE = (
     "strategies/mase", "strategies/coreset")
 
 
-@pytest.mark.parametrize("module", TRAINING_SLICE + ACQUISITION_SLICE)
+# The last samplers: Balancing (kernel H), MarginClustering and VAAL.
+SAMPLERS_SLICE = (
+    "ops/balancing", "strategies/balancing", "strategies/clustering",
+    "strategies/vaal", "models/vaal")
+
+
+@pytest.mark.parametrize("module", TRAINING_SLICE + ACQUISITION_SLICE
+                         + SAMPLERS_SLICE)
 def test_training_slice_module_is_checked(module):
     path = os.path.join(PKG, *module.split("/")) + ".py"
     assert path in _port_files()

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from active_learning_tpu_torch.ops import badge as bg
+from active_learning_tpu_torch.ops import balancing as bal
 from active_learning_tpu_torch.ops import bn_act as ba
 from active_learning_tpu_torch.ops import bn_train as bt
 from active_learning_tpu_torch.ops import boundary_radii as br
@@ -373,3 +374,88 @@ def test_badge_kernel_matches_plain(cuda_device, b, c, d, pool_512):
     for k in ("grad_a", "grad_e"):
         assert got[k].shape == ref[k].shape
         torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-6)
+
+
+# -- kernel H: the balancing pick ---------------------------------------------
+
+def _bal_pool(dev, n, d, c, n_maj, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.randn(n, d, device=dev, generator=g)
+    centers = torch.randn(c, d, device=dev, generator=g)
+    eligible = torch.rand(n, device=dev, generator=g) > 0.3
+    maj = torch.zeros(c, dtype=torch.bool, device=dev)
+    maj[torch.randperm(c, device=dev, generator=g)[:n_maj]] = True
+    rarest = int((~maj).nonzero()[0, 0])
+    return emb, eligible, centers, maj, rarest
+
+
+def _assert_pick_held(args, rare_empty):
+    """The kernel's pick equals the plain version's, or the two rows'
+    plain scores lie within bal.score_tolerance of each other."""
+    before = bal.launches
+    got = int(bal.balancing_pick(*args, rare_empty))
+    torch.cuda.synchronize()
+    assert bal.launches == before + 1
+    want = int(bal.balancing_pick_reference(*args, rare_empty))
+    if got != want:
+        emb, eligible, centers, maj, rarest = args
+        scores = bal.balancing_scores_reference(*args, rare_empty)
+        tol = bal.score_tolerance(emb, centers, maj, rarest, rare_empty)
+        assert bool(eligible[got])
+        gap = float((scores[got] - scores[want]).abs())
+        assert gap <= float(tol[got] + tol[want]), (got, want, gap)
+    return got, want
+
+
+@pytest.mark.parametrize("n,d,c,n_maj", [
+    (20431, 512, 10, 4), (50000, 512, 10, 3), (1000, 2048, 1000, 400),
+    (777, 33, 17, 9), (130, 7, 3, 1), (257, 64, 16, 0)])
+@pytest.mark.parametrize("rare_empty", [False, True])
+def test_balancing_kernel_matches_plain(cuda_device, n, d, c, n_maj,
+                                        rare_empty):
+    """Both row tiles (C <= 16: 128 x 8, above: 64 x 64), ragged rows and
+    features, no majority class (every score -0)."""
+    args = _bal_pool(cuda_device, n, d, c, n_maj, n + c)
+    _assert_pick_held(args, rare_empty)
+
+
+def test_balancing_kernel_edge_cases(cuda_device):
+    """Duplicate rows tie to the lower index; ineligible rows never win;
+    a row on a majority centroid; a NaN row wins; nothing eligible is
+    row 0."""
+    emb, eligible, centers, maj, rarest = _bal_pool(cuda_device, 5000, 96,
+                                                    12, 5, 7)
+    eligible[:] = True
+    scores = bal.balancing_scores_reference(emb, eligible, centers, maj,
+                                            rarest, False)
+    best = int(scores.argmin())
+    lo = max(best - 3, 0)
+    emb[best + 1:best + 40] = emb[best]
+    emb[lo:best] = emb[best]  # earlier copies win
+    args = (emb, eligible, centers, maj, rarest)
+    got, want = _assert_pick_held(args, False)
+    assert got == want == lo
+    eligible[lo:best] = False
+    got, want = _assert_pick_held(args, False)
+    assert got == want == best
+    eligible[:] = True
+    emb[77] = centers[int(maj.nonzero()[0, 0])]
+    _assert_pick_held(args, False)
+    _assert_pick_held(args, True)
+    emb[4000, 5] = float("nan")
+    emb[4100, 0] = float("nan")
+    got, want = _assert_pick_held(args, False)
+    assert got == want == 4000
+    eligible[:] = False
+    got, want = _assert_pick_held(args, False)
+    assert got == want == 0
+
+
+def test_balancing_wrapper_raises_rather_than_falls_back(cuda_device):
+    emb, eligible, centers, maj, rarest = _bal_pool(cuda_device, 64, 8, 4,
+                                                    2, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        bal.balancing_pick(torch.zeros(64, 16, device=cuda_device)[:, ::2],
+                           eligible, centers, maj, rarest, False)
+    with pytest.raises(ValueError, match="one device"):
+        bal.balancing_pick(emb, eligible.cpu(), centers, maj, rarest, False)

@@ -125,8 +125,9 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 
 def test_build_names_every_source_with_its_hash():
-    assert _build.sources() == ["badge", "bn_train", "boundary_radii",
-                                "fused_sgd", "kcenter", "prob_stats"]
+    assert _build.sources() == ["badge", "balancing", "bn_train",
+                                "boundary_radii", "fused_sgd", "kcenter",
+                                "prob_stats"]
     path = _build.library_path("prob_stats")
     assert path.startswith(_build.BUILD_DIR)
     assert path == _build.library_path("prob_stats")
