@@ -164,6 +164,9 @@ class ExperimentConfig:
     # Overrides of the arg pool's TrainConfig; None defers to it.
     dtype: Optional[str] = None
     bn_stats_dtype: Optional[str] = None
+    # ResNet stem ("default"/"s2d"); the 10-class datasets keep the
+    # CIFAR stem whatever it says.
+    stem: Optional[str] = None
     fused_optimizer: Optional[str] = None
     optim_state_dtype: Optional[str] = None
 

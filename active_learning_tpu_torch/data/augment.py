@@ -1,6 +1,8 @@
 """Device-side input transforms (the JAX package's ``data/augment.py``):
 normalization for every view, random crop + horizontal flip for the
-train view.
+train view.  Space-to-depth rows (``[B, H/2, W/2, 4C]``, the s2d stem's
+host feed) are normalized per pixel and flipped by ``s2d_flip``; their
+train view is flip-only (``pad == 0``), as in the JAX package.
 
 The draw is split from the transform.  ``crop_flip`` takes explicit
 per-row crop offsets and a flip mask, so a test can hand the port the
@@ -20,18 +22,40 @@ import torch.nn.functional as F
 from .core import Normalization, ViewSpec
 
 
+def _is_s2d(images: torch.Tensor, norm: Normalization) -> bool:
+    c, n = images.shape[-1], len(norm.mean)
+    if c not in (n, 4 * n):
+        raise ValueError(f"rows have {c} channels; the normalization has "
+                         f"{n} (or {4 * n} in the space-to-depth layout)")
+    return c == 4 * n
+
+
 def normalize(images_u8: torch.Tensor, norm: Normalization) -> torch.Tensor:
     """uint8 ``[B, H, W, C]`` -> float32 ``(x - 255·mean) / (255·std)``,
     the same float32 arithmetic as the JAX package (ToTensor +
-    Normalize folded into one affine)."""
-    c = images_u8.shape[-1]
-    if c != len(norm.mean):
-        raise ValueError(f"rows have {c} channels; the normalization has "
-                         f"{len(norm.mean)} (the s2d layout is not ported)")
+    Normalize folded into one affine).  Space-to-depth rows (channel
+    ``(di·2 + dj)·C + c``) get the same per-pixel affine, the mean and
+    std tiled over the 4 blocks."""
+    blocks = 4 if _is_s2d(images_u8, norm) else 1
     dev = images_u8.device
-    mean = torch.tensor(norm.mean, dtype=torch.float32, device=dev) * 255.0
-    std = torch.tensor(norm.std, dtype=torch.float32, device=dev) * 255.0
+    mean = torch.tensor(norm.mean * blocks, dtype=torch.float32,
+                        device=dev) * 255.0
+    std = torch.tensor(norm.std * blocks, dtype=torch.float32,
+                       device=dev) * 255.0
     return (images_u8.to(torch.float32) - mean) / std
+
+
+def s2d_flip(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    """Per-row horizontal flip of a space-to-depth batch ``[B, H/2, W/2,
+    4C]`` where ``flip`` (``[B]`` bool) is set: mirroring the original
+    width reverses the blocked columns and swaps the in-block offsets
+    ``dj ∈ {0, 1}``, channel ``(di, dj, c) -> (di, 1 − dj, c)``.  Equal to
+    space-to-depth of the flipped rows."""
+    c4 = images.shape[-1]
+    perm = torch.arange(c4, device=images.device).reshape(
+        2, 2, c4 // 4).flip(1).reshape(-1)
+    flipped = images.flip(2)[..., perm]
+    return torch.where(flip[:, None, None, None], flipped, images)
 
 
 def crop_flip(images: torch.Tensor, offsets: torch.Tensor,
@@ -53,16 +77,21 @@ def crop_flip(images: torch.Tensor, offsets: torch.Tensor,
     return torch.where(flip[:, None, None, None], images.flip(2), images)
 
 
+def _draw_crop_flip(b: int, generator: torch.Generator, pad: int,
+                    dev: torch.device):
+    offsets = torch.randint(0, 2 * pad + 1, (b, 2), generator=generator,
+                            device=dev)
+    flip = torch.rand(b, generator=generator, device=dev) < 0.5
+    return offsets, flip
+
+
 def random_crop_flip(images: torch.Tensor, generator: torch.Generator,
                      pad: int = 4) -> torch.Tensor:
     """``crop_flip`` with offsets uniform in ``[0, 2·pad]`` and flips
     with probability 1/2, drawn from ``generator`` (on the images'
     device)."""
-    b = images.shape[0]
-    dev = images.device
-    offsets = torch.randint(0, 2 * pad + 1, (b, 2), generator=generator,
-                            device=dev)
-    flip = torch.rand(b, generator=generator, device=dev) < 0.5
+    offsets, flip = _draw_crop_flip(images.shape[0], generator, pad,
+                                    images.device)
     return crop_flip(images, offsets, flip, pad)
 
 
@@ -71,10 +100,20 @@ def apply_view(images_u8: torch.Tensor, view: ViewSpec,
                train: bool = True) -> torch.Tensor:
     """A dataset view's transform on the device: augment=True and
     train=True crop and flip the raw uint8 rows, then normalize;
-    otherwise normalize only (the val transform)."""
+    otherwise normalize only (the val transform).  Space-to-depth rows
+    take the flip-only train view (``view.pad`` must be 0), with the
+    draws ``random_crop_flip`` makes: at one generator state the s2d
+    rows come out as space-to-depth of the raw rows' result."""
     x = images_u8
     if view.augment and train:
         if generator is None:
             raise ValueError("augmentation needs a torch.Generator")
-        x = random_crop_flip(x, generator, pad=view.pad)
+        if _is_s2d(x, view.normalization):
+            if view.pad != 0:
+                raise ValueError("space-to-depth rows take the flip-only "
+                                 f"train view (pad 0), not pad {view.pad}")
+            _, flip = _draw_crop_flip(x.shape[0], generator, 0, x.device)
+            x = s2d_flip(x, flip)
+        else:
+            x = random_crop_flip(x, generator, pad=view.pad)
     return normalize(x, view.normalization)

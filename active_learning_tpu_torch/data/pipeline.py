@@ -5,7 +5,9 @@ Batches are fixed-shape: the last one is padded with copies of its
 first row and masked.  Batch order and membership come from explicit
 index math on an injected ``np.random.Generator``, so at the same
 generator state the port's batches are bit-identical to the JAX
-package's.  Every batch carries the pool indices of its rows.
+package's.  Every batch carries the pool indices of its rows.  With
+``s2d=True`` the rows leave the host in the space-to-depth layout of the
+s2d stem (``space_to_depth``), the same bytes re-laid.
 """
 
 from __future__ import annotations
@@ -48,10 +50,24 @@ def padded_batch_layout(batch_idxs: np.ndarray, batch_size: int):
     return idxs, mask
 
 
+def space_to_depth(images: np.ndarray, block: int = 2) -> np.ndarray:
+    """Host-side space-to-depth: uint8 ``[B, H, W, C] -> [B, H/b, W/b,
+    b·b·C]``, channel index ``(di·b + dj)·C + c``, the layout of
+    ``models/resnet.space_to_depth`` and of the folded stem kernel
+    (``s2d_stem_kernel``).  The byte count is unchanged."""
+    b, h, w, c = images.shape
+    x = images.reshape(b, h // block, block, w // block, block, c)
+    return np.ascontiguousarray(
+        x.transpose(0, 1, 3, 2, 4, 5)).reshape(
+            b, h // block, w // block, block * block * c)
+
+
 def gather_batch(dataset: Dataset, batch_idxs: np.ndarray,
-                 batch_size: int) -> Dict[str, np.ndarray]:
-    """One fixed-shape batch: uint8 images, int32 labels and pool
-    indices, float32 validity mask (0 on padding rows)."""
+                 batch_size: int, s2d: bool = False
+                 ) -> Dict[str, np.ndarray]:
+    """One fixed-shape batch: uint8 images (space-to-depth with
+    ``s2d``), int32 labels and pool indices, float32 validity mask (0 on
+    padding rows)."""
     idxs, mask = padded_batch_layout(batch_idxs, batch_size)
     n_real = int(mask.sum())
     images = dataset.gather(idxs[:n_real])
@@ -60,6 +76,8 @@ def gather_batch(dataset: Dataset, batch_idxs: np.ndarray,
         images = np.concatenate(
             [images, np.repeat(pad_img, len(idxs) - n_real, axis=0)], axis=0)
     labels = dataset.targets[idxs]
+    if s2d:
+        images = space_to_depth(images)
     return {"image": images, "label": labels.astype(np.int32),
             "index": np.asarray(idxs, dtype=np.int32), "mask": mask}
 
@@ -73,15 +91,17 @@ def iterate_batches(
     drop_last: bool = False,
     prefetch: int = 2,
     num_threads: int = 0,
+    s2d: bool = False,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield fixed-shape host batches; with ``num_threads > 0`` worker
-    threads gather ahead (at most ``num_threads + prefetch`` batches in
-    flight) and batches still come out in order."""
+    """Yield fixed-shape host batches (space-to-depth with ``s2d``);
+    with ``num_threads > 0`` worker threads gather ahead (at most
+    ``num_threads + prefetch`` batches in flight) and batches still come
+    out in order."""
     batches = batch_index_lists(idxs, batch_size, shuffle=shuffle, rng=rng,
                                 drop_last=drop_last)
     if num_threads <= 0:
         for b in batches:
-            yield gather_batch(dataset, b, batch_size)
+            yield gather_batch(dataset, b, batch_size, s2d)
         return
 
     from collections import deque
@@ -94,13 +114,13 @@ def iterate_batches(
         it = iter(batches)
         for b in itertools.islice(it, num_threads + max(1, prefetch)):
             pending.append(executor.submit(gather_batch, dataset, b,
-                                           batch_size))
+                                           batch_size, s2d))
         while pending:
             batch = pending.popleft().result()
             nxt = next(it, None)
             if nxt is not None:
                 pending.append(executor.submit(gather_batch, dataset, nxt,
-                                               batch_size))
+                                               batch_size, s2d))
             yield batch
     finally:
         executor.shutdown(wait=False, cancel_futures=True)

@@ -8,10 +8,10 @@ with the JAX CLI's flag names for everything the port carries:
 
 ``--device`` (the port's own flag) defaults to ``cuda`` and raises
 without a card; ``cpu`` runs the kernels' plain versions.  A flag of the
-JAX CLI that the port does not carry yet (``--resume_training``,
-``--stem s2d``, the resident/stream/int8/fleet knobs, ...) and a dataset
-or strategy not ported yet exit with status 2 and a message naming
-ROADMAP.md; nothing is silently ignored.
+JAX CLI that the port does not carry yet (``--resume_training``, the
+resident/stream/int8/fleet knobs, ...) and a dataset or strategy not
+ported yet exit with status 2 and a message naming ROADMAP.md; nothing
+is silently ignored.
 """
 
 from __future__ import annotations
@@ -53,13 +53,6 @@ class _NotPorted(argparse.Action):
         parser.error(f"{option_string} is not ported yet (ROADMAP.md)")
 
 
-class _Stem(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        if values != "default":
-            parser.error(f"--stem {values} is not ported yet (ROADMAP.md)")
-        setattr(namespace, self.dest, values)
-
-
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m active_learning_tpu_torch",
@@ -91,8 +84,12 @@ def get_parser() -> argparse.ArgumentParser:
                    help="compute precision (params/BN stay float32)")
     p.add_argument("--bn_stats_dtype", type=str, default=None,
                    choices=["auto", "bfloat16", "float32"])
-    p.add_argument("--stem", type=str, default="default", action=_Stem,
-                   choices=["default", "s2d"])
+    p.add_argument("--stem", type=str, default=None,
+                   choices=["default", "s2d"],
+                   help="ResNet stem: s2d folds the 224px 7x7/s2 stem into "
+                        "an exact 4x4/s1 conv over space-to-depth input "
+                        "(default: the arg pool's; CIFAR datasets keep "
+                        "their stem)")
     p.add_argument("--fused_optimizer", type=str, default=None,
                    choices=["auto", "on", "off"])
     p.add_argument("--optim_state_dtype", type=str, default=None,
@@ -127,7 +124,7 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
         init_pool_type=args.init_pool_type, model=args.model,
         n_epoch=args.n_epoch, early_stop_patience=args.early_stop_patience,
         dtype=args.dtype, bn_stats_dtype=args.bn_stats_dtype,
-        fused_optimizer=args.fused_optimizer,
+        stem=args.stem, fused_optimizer=args.fused_optimizer,
         optim_state_dtype=args.optim_state_dtype,
         subset_labeled=args.subset_labeled,
         subset_unlabeled=args.subset_unlabeled, partitions=args.partitions,

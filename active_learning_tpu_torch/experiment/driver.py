@@ -64,12 +64,12 @@ def build_experiment(cfg: ExperimentConfig,
     train_set, test_set, al_set = data
     num_classes = al_set.num_classes
     if model is None:
-        # --dtype / --bn_stats_dtype beat the arg pool's TrainConfig;
-        # "auto" is bf16 on the card, float32 on the CPU.
+        # --dtype / --bn_stats_dtype / --stem beat the arg pool's
+        # TrainConfig; "auto" is bf16 on the card, float32 on the CPU.
         model = get_network(cfg.dataset, cfg.model,
                             num_classes=num_classes,
                             dtype=cfg.dtype or train_cfg.dtype,
-                            stem=train_cfg.stem,
+                            stem=cfg.stem or train_cfg.stem,
                             bn_stats_dtype=(cfg.bn_stats_dtype
                                             or train_cfg.bn_stats_dtype),
                             device=device,

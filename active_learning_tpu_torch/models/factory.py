@@ -1,6 +1,7 @@
 """Model factory: dataset/model name -> SSLClassifier on a device (the
 JAX package's ``models/factory.py``).  The CIFAR stem follows the class
-count (``num_classes == 10``), as the reference does."""
+count (``num_classes == 10``), as the reference does; ``stem="s2d"``
+selects the space-to-depth ImageNet stem everywhere else."""
 
 from __future__ import annotations
 
@@ -77,18 +78,15 @@ def get_network(dataset: str, model_name: str,
                            "explicitly") from None
     factory = MODELS.get(model_name)
     cifar_stem = num_classes == 10
-    if stem in (None, "auto") or cifar_stem:
-        # CIFAR datasets keep their SimCLR stem whatever the global stem
-        # choice, as in the JAX package.
+    if stem in (None, "auto") or (stem == "s2d" and cifar_stem):
+        # The stem choice is global: CIFAR datasets keep their SimCLR
+        # stem (there is no 7x7 conv to fold), as in the JAX package.
         stem = "default"
-    if stem != "default":
-        raise NotImplementedError(
-            f"stem {stem!r} is not ported yet (ROADMAP.md); the port "
-            "runs the default 7x7/s2 stem and the CIFAR stem")
     compute = resolve_dtype(dtype, device)
     fused = resolve_bn_stats_dtype(bn_stats_dtype, compute,
                                    device) == torch.bfloat16
     model = factory(num_classes=num_classes, cifar_stem=cifar_stem,
                     dtype=compute, fused_stats=fused,
-                    num_filters=num_filters, freeze_feature=freeze_feature)
+                    num_filters=num_filters, freeze_feature=freeze_feature,
+                    stem=stem)
     return model.to(device=device, memory_format=torch.channels_last)

@@ -18,6 +18,16 @@ kernel B) in training mode.  Convolutions, max-pool, the global mean and
 the head are stock PyTorch (cuDNN/cuBLAS), as they were XLA's generic
 lowering in the JAX package.
 
+The space-to-depth stem (``stem="s2d"``, the JAX package's
+``resnet.py:27-36, 69-107, 210-229``): the 224-px 7x7/s2 stem conv is
+the same convolution as a 4x4/s1 conv over the input re-laid as
+112x112x12 (2x2 pixel blocks flattened into channels, in the order
+``(di, dj, c)``), with the 7x7 kernel folded by ``s2d_stem_kernel``.  The
+encoder takes either layout: 3-channel rows are re-laid on the device,
+12-channel rows (the host feed's ``data/pipeline.space_to_depth``) pass
+through.  The stem conv trains through ``S2DStemConv``, whose weight
+gradient is kernel I (``ops/stem_conv``, float32 accumulation).
+
 Training mode (``model.train()``) uses batch statistics and updates the
 running statistics outside the graph, ``ra = 0.9·ra + 0.1·batch`` with
 the biased batch variance, as flax does.  Eval-mode BatchNorm has no
@@ -30,12 +40,75 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import bn_act as bn_act_lib
 from ..ops import bn_train as bn_train_lib
+from ..ops import stem_conv as stem_conv_lib
+
+# Space-to-depth block size of the 224-px stem: 2x2 pixel blocks -> 12
+# channels.  The channel order within a block is (di, dj, c) row-major;
+# ``space_to_depth`` here, ``data/pipeline.space_to_depth`` and
+# ``s2d_stem_kernel`` agree on it.
+S2D_BLOCK = 2
+
+# The folded 7x7/pad-3 window in s2d coordinates: ((top, bottom),
+# (left, right)) zero padding of the 4x4/s1 conv.
+S2D_PADDING = stem_conv_lib.S2D_PADDING
+
+
+def _permute(a, axes):
+    return a.permute(*axes) if isinstance(a, torch.Tensor) \
+        else a.transpose(axes)
+
+
+def space_to_depth(x, block: int = S2D_BLOCK):
+    """``[B, H, W, C] -> [B, H/b, W/b, b·b·C]`` on a torch tensor or a
+    numpy array (pure reshape and transpose); channel index ``(di·b +
+    dj)·C + c``."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // block, block, w // block, block, c)
+    x = _permute(x, (0, 1, 3, 2, 4, 5))
+    return x.reshape(b, h // block, w // block, block * block * c)
+
+
+def s2d_stem_kernel(kernel7):
+    """Fold a ``[7, 7, C, F]`` (HWIO) stride-2/pad-3 stem kernel into the
+    exact ``[4, 4, 4C, F]`` stride-1 kernel over space-to-depth input, on
+    a torch tensor or a numpy array.
+
+    Output (i, j) sums ``W[a, b, c]·X[2i+a−3, 2j+b−3, c]``.  Writing the
+    input row as ``u = 2p + di`` gives ``a = 2r + di − 1`` for the s2d tap
+    ``r = p − i + 2 ∈ 0..3``: pad the kernel to 8x8 with one leading zero
+    row and column, then regroup ``[4, 2, 4, 2]`` into taps and in-block
+    offsets.  Pure re-indexing: every product of the 7x7 conv appears
+    once (plus 4C·F structural zeros)."""
+    kh, kw, c, f = kernel7.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError(f"the stem kernel must be 7x7, got {kh}x{kw}")
+    if isinstance(kernel7, torch.Tensor):
+        padded = kernel7.new_zeros((8, 8, c, f))
+    else:
+        padded = np.zeros((8, 8, c, f), dtype=kernel7.dtype)
+    padded[1:, 1:] = kernel7
+    k = padded.reshape(4, 2, 4, 2, c, f)            # [r, di, s, dj, c, f]
+    k = _permute(k, (0, 2, 1, 3, 4, 5))             # [r, s, di, dj, c, f]
+    return k.reshape(4, 4, 4 * c, f)
+
+
+def stem_kernel_from_s2d(kernel4):
+    """Inverse of ``s2d_stem_kernel``: ``[4, 4, 4C, F] -> [7, 7, C, F]``
+    (drops the structural zero row and column)."""
+    kh, kw, c4, f = kernel4.shape
+    if (kh, kw) != (4, 4) or c4 % 4:
+        raise ValueError(f"not an s2d stem kernel: {tuple(kernel4.shape)}")
+    c = c4 // 4
+    k = kernel4.reshape(4, 4, 2, 2, c, f)           # [r, s, di, dj, c, f]
+    k = _permute(k, (0, 2, 1, 3, 4, 5))             # [r, di, s, dj, c, f]
+    return k.reshape(8, 8, c, f)[1:, 1:]
 
 
 def _cache_key(tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> Tuple:
@@ -79,6 +152,72 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.compute_weight(), stride=self.stride,
                         padding=self.padding)
+
+
+def _pad_s2d(x: torch.Tensor) -> torch.Tensor:
+    (p0, p1), (q0, q1) = S2D_PADDING
+    return F.pad(x, (q0, q1, p0, p1)).contiguous(
+        memory_format=torch.channels_last)
+
+
+class S2DStemConv(torch.autograd.Function):
+    """The s2d stem's 4x4/s1 conv with the JAX package's hand-written
+    backward (``ops/backward.py:65-117``), over a channels-last ``[B, 4C,
+    H, W]`` activation already in the compute dtype ``dtype`` and the
+    float32 weight.
+
+    Forward: the weight is cast to the compute dtype inside the
+    Function, so the cast is not in the autograd graph and the weight's
+    gradient is the kernel's float32 sum, not one rounded to bf16 by the
+    cast's backward.  ``F.conv2d`` has no asymmetric padding, so the
+    input is padded by ``S2D_PADDING`` first (one copy of the 12-channel
+    input, 38.5 MB at B=128 in bf16; padding 2 on every side and
+    dropping the last output row and column would compute 1.8% more and
+    copy the 64-channel output, 205 MB, into the channels-last layout
+    kernel C takes).
+    Backward: ``dW`` through kernel I (``ops/stem_conv.stem_dw``,
+    float32); ``dx`` through ``torch.nn.grad.conv2d_input`` only when
+    the input needs it (the stem's input never does in training)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, dtype):
+        w = weight.detach().to(dtype=dtype,
+                               memory_format=torch.channels_last)
+        ctx.save_for_backward(x, w)
+        ctx.weight_dtype = weight.dtype
+        return F.conv2d(_pad_s2d(x), w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        (p0, p1), (q0, q1) = S2D_PADDING
+        kh, kw = w.shape[2], w.shape[3]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            b, c, h, wd = x.shape
+            dxp = torch.nn.grad.conv2d_input(
+                (b, c, h + p0 + p1, wd + q0 + q1), w, gy)
+            dx = dxp[:, :, p0:p0 + h, q0:q0 + wd]
+        if ctx.needs_input_grad[1]:
+            dw = stem_conv_lib.stem_dw(
+                x.permute(0, 2, 3, 1), gy.permute(0, 2, 3, 1), kh, kw,
+                S2D_PADDING).to(ctx.weight_dtype)
+        return dx, dw, None
+
+
+class S2DStem(Conv):
+    """The s2d stem conv: ``[F, 4C, 4, 4]`` float32 weights, padding
+    ``S2D_PADDING``.  With gradients recorded it runs ``S2DStemConv``;
+    otherwise ``Conv``'s cached ``dtype`` copy of the weight."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+        super().__init__(cin, cout, 4, 1, 0, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and (self.weight.requires_grad
+                                        or x.requires_grad):
+            return S2DStemConv.apply(x, self.weight, self.dtype)
+        return F.conv2d(_pad_s2d(x), self.compute_weight())
 
 
 class BatchNorm(nn.Module):
@@ -204,13 +343,17 @@ class ResNetEncoder(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_filters: int = 64, cifar_stem: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 fused_stats: bool = False):
+                 fused_stats: bool = False, stem: str = "default"):
         super().__init__()
+        _check_stem(stem, cifar_stem)
         self.dtype = dtype
         self.cifar_stem = cifar_stem
+        self.stem = stem
         if cifar_stem:
             # SimCLR CIFAR stem: 3x3 stride-1 conv, no max pool.
             self.conv_stem = Conv(3, num_filters, 3, 1, 1, dtype)
+        elif stem == "s2d":
+            self.conv_stem = S2DStem(3 * S2D_BLOCK ** 2, num_filters, dtype)
         else:
             self.conv_stem = Conv(3, num_filters, 7, 2, 3, dtype)
         self.bn_stem = BatchNorm(num_filters, dtype, fused_stats)
@@ -228,7 +371,10 @@ class ResNetEncoder(nn.Module):
         self.embed_dim = cin
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``: float ``[B, H, W, 3]`` (NHWC, already normalized)."""
+        """``x``: float ``[B, H, W, 3]`` (NHWC, already normalized), or
+        ``[B, H/2, W/2, 12]`` space-to-depth rows for the s2d stem."""
+        if self.stem == "s2d" and x.shape[-1] == 3:
+            x = space_to_depth(x)
         x = x.permute(0, 3, 1, 2).to(dtype=self.dtype,
                                      memory_format=torch.channels_last)
         x = self.bn_stem(self.conv_stem(x), relu=True)
@@ -259,14 +405,15 @@ class SSLClassifier(nn.Module):
                  num_classes: int, cifar_stem: bool = False,
                  dtype: torch.dtype = torch.float32,
                  fused_stats: bool = False, num_filters: int = 64,
-                 freeze_feature: bool = False):
+                 freeze_feature: bool = False, stem: str = "default"):
         super().__init__()
         self.num_classes = num_classes
         self.cifar_stem = cifar_stem
+        self.stem = stem
         self.freeze_feature = freeze_feature
         self.dtype = dtype
         self.encoder = ResNetEncoder(stage_sizes, block_cls, num_filters,
-                                     cifar_stem, dtype, fused_stats)
+                                     cifar_stem, dtype, fused_stats, stem)
         self.linear = nn.Linear(self.encoder.embed_dim, num_classes)
         nn.init.normal_(self.linear.weight, std=1e-3)
         nn.init.zeros_(self.linear.bias)
@@ -291,21 +438,32 @@ class SSLClassifier(nn.Module):
         return self.linear(embedding)
 
 
+def _check_stem(stem: str, cifar_stem: bool) -> None:
+    if stem not in ("default", "s2d"):
+        raise ValueError(f"unknown stem {stem!r}; expected 'default'/'s2d'")
+    if stem == "s2d" and cifar_stem:
+        raise ValueError("the s2d stem refactors the 7x7/s2 ImageNet stem; "
+                         "the CIFAR stem (3x3/s1) has nothing to fold")
+
+
 def resnet18(num_classes: int, cifar_stem: bool = False,
              dtype: torch.dtype = torch.float32, fused_stats: bool = False,
              num_filters: int = 64, freeze_feature: bool = False,
-             stage_sizes: Sequence[int] = (2, 2, 2, 2)) -> SSLClassifier:
+             stage_sizes: Sequence[int] = (2, 2, 2, 2),
+             stem: str = "default") -> SSLClassifier:
     return SSLClassifier(stage_sizes, BasicBlock, num_classes, cifar_stem,
-                         dtype, fused_stats, num_filters, freeze_feature)
+                         dtype, fused_stats, num_filters, freeze_feature,
+                         stem)
 
 
 def resnet50(num_classes: int, cifar_stem: bool = False,
              dtype: torch.dtype = torch.float32, fused_stats: bool = False,
              num_filters: int = 64, freeze_feature: bool = False,
-             stage_sizes: Sequence[int] = (3, 4, 6, 3)) -> SSLClassifier:
+             stage_sizes: Sequence[int] = (3, 4, 6, 3),
+             stem: str = "default") -> SSLClassifier:
     return SSLClassifier(stage_sizes, BottleneckBlock, num_classes,
                          cifar_stem, dtype, fused_stats, num_filters,
-                         freeze_feature)
+                         freeze_feature, stem)
 
 
 @torch.no_grad()

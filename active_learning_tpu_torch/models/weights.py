@@ -13,7 +13,11 @@ The port's module names are flax's, so a flax path maps to a
 with ``<mod>``/``<bn>`` one of ``conv_stem``, ``bn_stem`` or
 ``stageS_blockB/{Conv_i, BatchNorm_i, downsample_conv, downsample_bn}``
 (the same naming ``utils/pretrained.py`` of the JAX package maps torch
-checkpoints onto).
+checkpoints onto).  The transpose is by rank alone, so the s2d stem's
+``[4, 4, 12, 64]`` HWIO kernel carries to its ``[64, 12, 4, 4]`` weight
+like any other convolution.  ``fold_stem`` / ``unfold_stem`` turn a
+default-stem state dict into the s2d stem's and back
+(``models/resnet.s2d_stem_kernel``): the same network, exactly.
 
 The fused optimizer's state ``{"trace": <params-shaped tree>}`` carries
 the same way, leaf for leaf onto the parameters' ``state_dict`` keys
@@ -29,6 +33,9 @@ import numpy as np
 import torch
 
 from ..train.checkpoint import flatten_tree
+from .resnet import s2d_stem_kernel, stem_kernel_from_s2d
+
+STEM_KEY = "encoder.conv_stem.weight"
 
 
 def _key(path) -> str:
@@ -93,6 +100,33 @@ def load_flax_variables(model: torch.nn.Module,
     """Copy a flax variables tree into ``model`` in place (strict: every
     key present, every shape equal)."""
     model.load_state_dict(from_flax_variables(variables), strict=True)
+
+
+def _map_stem(state_dict: Dict[str, torch.Tensor], fn, want: int
+              ) -> Dict[str, torch.Tensor]:
+    w = state_dict[STEM_KEY]
+    if w.shape[2] != want:
+        raise ValueError(f"{STEM_KEY} is {tuple(w.shape)}, not a "
+                         f"{want}x{want} stem")
+    hwio = fn(w.detach().permute(2, 3, 1, 0))
+    out = dict(state_dict)
+    out[STEM_KEY] = hwio.permute(3, 2, 0, 1).contiguous()
+    return out
+
+
+def fold_stem(state_dict: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+    """A default-stem (7x7/s2) state dict -> the s2d stem's: the stem
+    weight ``[F, 3, 7, 7]`` becomes ``[F, 12, 4, 4]``; every other entry
+    is shared.  The port's counterpart of the JAX tests'
+    ``_s2d_variables_from_baseline``."""
+    return _map_stem(state_dict, s2d_stem_kernel, 7)
+
+
+def unfold_stem(state_dict: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``fold_stem``: ``[F, 12, 4, 4] -> [F, 3, 7, 7]``."""
+    return _map_stem(state_dict, stem_kernel_from_s2d, 4)
 
 
 def from_flax_trace(opt_state: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -2,9 +2,10 @@
 kernel B ``bn_act`` (Triton), kernel C ``bn_train`` (CUDA, three device
 functions), kernel D ``fused_sgd`` (CUDA), kernel E ``kcenter`` (CUDA:
 fold + top-q, fold + D² draw, initial min), kernel F ``boundary_radii``
-(CUDA: radii, pair norms), kernel G ``badge`` (CUDA) and kernel H
-``balancing`` (CUDA: the balancing pick).  Each wrapper
-counts its launches; ``kernel_launches`` reads them all, so a run can
+(CUDA: radii, pair norms), kernel G ``badge`` (CUDA), kernel H
+``balancing`` (CUDA: the balancing pick) and kernel I ``stem_conv``
+(CUDA: the s2d stem's weight gradient).  Each wrapper counts its
+launches; ``kernel_launches`` reads them all, so a run can
 show which kernels its path went through."""
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Dict
 
 def kernel_launches() -> Dict[str, int]:
     from . import (badge, balancing, bn_act, bn_train, boundary_radii,
-                   fused_sgd, kcenter, prob_stats)
+                   fused_sgd, kcenter, prob_stats, stem_conv)
     return {"prob_stats": prob_stats.launches, "bn_act": bn_act.launches,
             "bn_train_stats": bn_train.stats_launches,
             "bn_train_bwd_reduce": bn_train.reduce_launches,
@@ -26,12 +27,13 @@ def kernel_launches() -> Dict[str, int]:
             "boundary_radii": boundary_radii.radii_launches,
             "head_pair_norms": boundary_radii.pair_norms_launches,
             "badge_factors": badge.launches,
-            "balancing_pick": balancing.launches}
+            "balancing_pick": balancing.launches,
+            "stem_dw": stem_conv.launches}
 
 
 def reset_kernel_launches() -> None:
     from . import (badge, balancing, bn_act, bn_train, boundary_radii,
-                   fused_sgd, kcenter, prob_stats)
+                   fused_sgd, kcenter, prob_stats, stem_conv)
     prob_stats.launches = 0
     bn_act.launches = 0
     bn_train.reset_launches()
@@ -40,3 +42,4 @@ def reset_kernel_launches() -> None:
     boundary_radii.reset_launches()
     badge.launches = 0
     balancing.launches = 0
+    stem_conv.launches = 0

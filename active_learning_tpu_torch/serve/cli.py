@@ -144,30 +144,37 @@ def resolve_serve_setup(args) -> Tuple[object, object, int, str]:
     return model, view, image_size, exp_dir
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    args = get_parser().parse_args(argv)
+def build_server(args):
+    """The ``ScoringServer`` (not started) that ``main`` runs for the
+    parsed ``args``."""
     serve_cfg = ServeConfig(
         host=args.host, port=args.port, max_batch=args.max_batch,
         max_latency_ms=args.max_latency_ms, queue_depth=args.queue_depth,
         bucket_floor=args.bucket_floor, reload_every_s=args.reload_every_s,
         drain_timeout_s=args.drain_timeout_s)
-
-    from ..utils.logging import setup_logging
-    setup_logging(args.log_dir,
-                  f"serve_{dt.date.today():%m%d}_{os.getpid()}.log")
-
     model, view, image_size, exp_dir = resolve_serve_setup(args)
 
     from .executor import DeviceExecutor
     from .server import ScoringServer
 
     # The executor loads the checkpoint itself, so its round stamp
-    # describes the file actually served.
+    # describes the file actually served.  Clients send (H, W, 3) rows
+    # (an s2d-stem model gets them re-laid on the host).
     executor = DeviceExecutor(
         model, view, next(model.parameters()).device,
         image_shape=(image_size, image_size, 3), ckpt_dir=exp_dir,
         reload_every_s=serve_cfg.reload_every_s)
-    server = ScoringServer(executor, serve_cfg)
+    return ScoringServer(executor, serve_cfg)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = get_parser().parse_args(argv)
+
+    from ..utils.logging import setup_logging
+    setup_logging(args.log_dir,
+                  f"serve_{dt.date.today():%m%d}_{os.getpid()}.log")
+
+    server = build_server(args)
     asyncio.run(_serve_until_signal(server))
     return 0
 

@@ -19,6 +19,10 @@ entry's future on its event loop.  Design decisions:
     recording an event; the compute thread makes its stream wait on the
     event.  The copy of batch n+1 runs while batch n computes, and at
     most ``PREFETCH_DEPTH`` batches are staged on the device.
+  * **The s2d stem's layout on the host.**  For a model with the s2d
+    stem each batch is re-laid as space-to-depth rows before its pinned
+    copy, as the offline scoring pass does; clients still send ``[H, W,
+    3]`` rows, and warmup stages the same shapes.
   * **Hot checkpoint reload between batches.**  The executor polls the
     experiment's checkpoint directory at a bounded cadence through
     ``train/checkpoint.BestCkptWatcher`` and copies a newer round's
@@ -35,6 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..data.pipeline import space_to_depth
 from ..ops import bn_act as bn_act_lib
 from ..ops import prob_stats as prob_stats_lib
 from ..strategies import scoring
@@ -66,7 +71,9 @@ class DeviceExecutor:
     the scoring view.  ``variables`` (a flax variables tree of numpy
     arrays) seeds the weights; with ``ckpt_dir`` and no ``variables``
     the newest ``best_rd_{n}.msgpack`` there is loaded, and re-polled
-    every ``reload_every_s`` between batches.
+    every ``reload_every_s`` between batches.  A model with the s2d stem
+    gets each batch of ``image_shape`` rows re-laid as space-to-depth
+    rows on the host (``host_s2d``).
     """
 
     def __init__(
@@ -83,6 +90,7 @@ class DeviceExecutor:
         self.view = view
         self.device = torch.device(device)
         self.image_shape = tuple(image_shape)
+        self.host_s2d = getattr(model, "stem", "default") == "s2d"
         self.ckpt_dir = ckpt_dir
         self.reload_every_s = float(reload_every_s)
         self.logger = get_logger()
@@ -168,6 +176,8 @@ class DeviceExecutor:
         """(device batch, ready event or None).  On the card: a copy into
         pinned memory, then a non-blocking H2D copy on the side stream."""
         arr = host_batch["image"]
+        if self.host_s2d:
+            arr = space_to_depth(arr)
         if self.device.type == "cpu":
             return {"image": torch.from_numpy(np.array(arr))}, None
         pinned = torch.empty(arr.shape, dtype=torch.uint8, pin_memory=True)

@@ -240,12 +240,17 @@ class Strategy:
         return self._score_steps[kind]
 
     def collect_scores(self, idxs: np.ndarray, kind: str,
-                       keys=None) -> Dict[str, np.ndarray]:
+                       keys=None, host_s2d: Optional[bool] = None
+                       ) -> Dict[str, np.ndarray]:
         """The ``kind`` step (``prob_stats``, ``embed``, ``embed_margin``,
         ``mase``, ``badge``, ``badge_pool``) over ``al_set[idxs]`` in
         fixed-shape batches of ``_score_batch_size`` rows (the last one
         padded), model in eval mode; host arrays aligned with ``idxs``,
-        floating outputs in float32."""
+        floating outputs in float32.  The rows leave the host in the
+        space-to-depth layout when ``host_s2d`` (default: the model has
+        the s2d stem, JAX ``strategies/base.py:497-507``)."""
+        if host_s2d is None:
+            host_s2d = self.trainer.host_s2d
         self.model.eval()
         step = self._get_score_step(kind)
         reset = getattr(step, "reset", None)
@@ -255,7 +260,7 @@ class Strategy:
         dev = self.trainer.device
         parts: Dict[str, list] = {}
         for b in batch_index_lists(np.asarray(idxs), bs):
-            batch = gather_batch(self.al_set, b, bs)
+            batch = gather_batch(self.al_set, b, bs, s2d=host_s2d)
             out = step(self.model,
                        {"image": torch.from_numpy(batch["image"]).to(dev)})
             for k, v in out.items():

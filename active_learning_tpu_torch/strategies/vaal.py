@@ -269,7 +269,10 @@ class VAALSampler(Strategy):
                 "VAAL has no trained VAE/discriminator; initializing a "
                 "fresh one for this query")
             self._init_vaal()
-        scores = self.collect_scores(idxs, "vaal", keys=("d_score",))
+        # The VAE is 3-channel: an s2d-stem classifier must not switch
+        # this pass to space-to-depth rows (JAX strategies/vaal.py:330-334).
+        scores = self.collect_scores(idxs, "vaal", keys=("d_score",),
+                                     host_s2d=False)
         budget = int(min(len(idxs), budget))
         order = np.argsort(scores["d_score"], kind="stable")[:budget]
         self.logger.info(f"Number of queried images: {budget}")

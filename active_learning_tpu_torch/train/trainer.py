@@ -22,6 +22,11 @@ every later draw of the experiment stays aligned with the reference's.
 step's device batch (uint8 images, labels, mask): the seam VAAL trains
 its VAE and discriminator through (JAX ``trainer.py:1070``, ``:1371``).
 
+An s2d-stem model (``model.stem == "s2d"``) is fed space-to-depth rows
+from the host (JAX ``trainer.py:162-164``), except under a
+``batch_hook``: VAAL's VAE is 3-channel, so the hook's batch stays raw
+and the model re-lays it on the device.
+
 Not ported yet (ROADMAP.md): the device-resident and epoch-scan feeds,
 and the mid-round fit state and its resume.
 """
@@ -98,6 +103,7 @@ class Trainer:
                 "(ROADMAP.md): it needs a backward for kernel B and the "
                 "pretrained checkpoints")
         self.train_bn = train_bn
+        self.host_s2d = getattr(model, "stem", "default") == "s2d"
         self.params = list(model.parameters())
         self.optimizer = make_optimizer(train_cfg)
         self.optimizer.init(self.params)
@@ -183,7 +189,8 @@ class Trainer:
             for batch in iterate_batches(
                     dataset, idxs, bs,
                     num_threads=self.cfg.loader_te.num_workers,
-                    prefetch=self.cfg.loader_te.prefetch):
+                    prefetch=self.cfg.loader_te.prefetch,
+                    s2d=self.host_s2d):
                 dev = self.to_device(batch)
                 x = apply_view(dev["image"], dataset.view, train=False)
                 yield batch_metric_counts(self.model(x), dev["label"],
@@ -234,7 +241,8 @@ class Trainer:
             for batch in iterate_batches(
                     train_set, labeled_idxs, bs, shuffle=True, rng=rng,
                     num_threads=self.cfg.loader_tr.num_workers,
-                    prefetch=self.cfg.loader_tr.prefetch):
+                    prefetch=self.cfg.loader_tr.prefetch,
+                    s2d=self.host_s2d and batch_hook is None):
                 dev_batch = self.to_device(batch)
                 loss, gnorm = self.train_step(dev_batch, lr, class_weights,
                                               train_set.view, generator)

@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py [--detail PATH]
 
-Drives the port's serving, training and acquisition paths
-(``active_learning_tpu_torch``) on the card, through the entry points a
-user calls, and fails (non-zero exit) if any phase fails:
+Drives the port's serving, training and acquisition paths, and the s2d
+stem through all three (``active_learning_tpu_torch``), on the card,
+through the entry points a user calls, and fails (non-zero exit) if any
+phase fails:
 
 1. Build: every CUDA source of the port with nvcc (all at once), and the
    Triton kernel's variants of the main path.
@@ -105,6 +106,24 @@ user calls, and fails (non-zero exit) if any phase fails:
     the CLI on the card (2 rounds) and with --device cpu (round-0
     indices equal); first kernels H, B and C held on the inputs the
     CLI's training and queries give them in this process.
+15. Kernel I (``ops/stem_conv``, CUDA: the s2d stem's weight gradient)
+    against its plain version (float32, TF32 off) and float64 truth at
+    B=128 x 112x112 (the fit width), B=8 (g NHWC-strided) and the edge
+    shapes 1x2x2, 3x4x6, 2x7x5, each in bf16 and f32: within
+    2·L·2⁻²⁴·Σ|x||g| of the plain version (L the longer chain) and
+    1.01·L_k·2⁻²⁴·Σ|x||g| of the truth, two launches bit-equal.  Timed
+    beside its plain version, its bound and the library wgrad
+    (``aten.convolution_backward``).
+16. The s2d stem: (1) full-width SSLResNet50 logits, default stem
+    against s2d stem on ``fold_stem`` weights, f32 and bf16, within 4x
+    the default network's own error against float64 (the CPU); (2)
+    ``run_experiment`` with ``stem="s2d"`` (SSLResNet50, 1000 classes,
+    MarginSampler, 2 rounds, default/imagenet, 1,024 seeded 224-px rows):
+    kernel I once per train step, the folded stem saved and echoed; (3)
+    the serve verb's server on that experiment, three 64-row requests,
+    scores bit-equal to the offline step over host-s2d rows; (4) a timed
+    B=128 train step, s2d against the default stem, and the stem alone;
+    (5) one float32 s2d train step on the card against the CPU.
 
 Prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -1085,13 +1104,18 @@ def run_cli_path(tmp: str):
             "phase_times": card["phase_times"]}
 
 
-def check_train_step_f32_against_cpu(devices=("cuda", "cpu")):
+def check_train_step_f32_against_cpu(devices=("cuda", "cpu"),
+                                     stem="default", num_classes=10,
+                                     hw=32, b=32):
     """One float32 train step of SSLResNet18 (CIFAR stem, B=32, 10
     classes, non-augmenting view) from the same numpy-seeded weights on
     the card (TF32 off) and on the CPU.  The loss within 1e-4 relative;
     the update (new minus old parameters, over all leaves) within 1e-3 of
     its norm: the same float32 network with every convolution and sum in
-    another order on each side."""
+    another order on each side.  With ``stem="s2d"`` (and a class count
+    other than 10) the ImageNet-layout model with the s2d stem, fed
+    space-to-depth rows, whose stem gradient is kernel I on the card."""
+    from active_learning_tpu_torch.data.pipeline import space_to_depth
     from active_learning_tpu_torch.config import TrainConfig
     from active_learning_tpu_torch.data.core import SYNTH_NORM, ViewSpec
     from active_learning_tpu_torch.device import set_float32_precision
@@ -1101,21 +1125,23 @@ def check_train_step_f32_against_cpu(devices=("cuda", "cpu")):
 
     set_float32_precision(torch.float32)
     rng = np.random.default_rng(SEED + 2)
-    batch = {"image": rng.integers(0, 256, (32, 32, 32, 3), dtype=np.uint8),
-             "label": rng.integers(0, 10, 32).astype(np.int32),
-             "mask": np.ones(32, np.float32)}
+    images = rng.integers(0, 256, (b, hw, hw, 3), dtype=np.uint8)
+    batch = {"image": space_to_depth(images) if stem == "s2d" else images,
+             "label": rng.integers(0, num_classes, b).astype(np.int32),
+             "mask": np.ones(b, np.float32)}
     view = ViewSpec(SYNTH_NORM, augment=False)
     out = []
     for device in devices:
-        model = get_network("cifar10", "SSLResNet18", dtype="float32",
-                            device=device)
+        model = get_network("imagenet", "SSLResNet18",
+                            num_classes=num_classes, dtype="float32",
+                            stem=stem, device=device)
         init_weights(model, torch.Generator().manual_seed(SEED))
         before = [p.detach().cpu().clone() for p in model.parameters()]
-        trainer = Trainer(model, TrainConfig(), 10, device)
+        trainer = Trainer(model, TrainConfig(), num_classes, device)
         model.train()
         loss, gnorm = trainer.train_step(
-            trainer.to_device(batch), 0.1, torch.ones(10, device=device),
-            view, None)
+            trainer.to_device(batch), 0.1,
+            torch.ones(num_classes, device=device), view, None)
         delta = torch.cat([(p.detach().cpu() - b).reshape(-1) for p, b in
                            zip(model.parameters(), before)])
         out.append((float(loss), float(gnorm), delta))
@@ -1125,8 +1151,9 @@ def check_train_step_f32_against_cpu(devices=("cuda", "cpu")):
     if rel > 1e-4 or upd > 1e-3:
         raise AssertionError(f"f32 train step card vs CPU: loss rel {rel}, "
                              f"update rel {upd}")
-    log(f"f32 train step card vs CPU: loss {lc:.6f} vs {lp:.6f} (rel "
-        f"{rel:.2e}), grad norm {gc:.6f} vs {gp:.6f}, update rel {upd:.2e}")
+    log(f"f32 train step ({stem} stem) card vs CPU: loss {lc:.6f} vs "
+        f"{lp:.6f} (rel {rel:.2e}), grad norm {gc:.6f} vs {gp:.6f}, update "
+        f"rel {upd:.2e}")
     return {"loss_rel": rel, "update_rel": upd, "grad_norm": [gc, gp]}
 
 
@@ -2585,6 +2612,515 @@ def run_cli_samplers(tmp: str):
     return out, total
 
 
+# -- phase 15: kernel I against its plain version -----------------------------
+
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+F32_EPS = 2.0 ** -24           # float32 unit roundoff
+# (B, H, W, dtype, g NHWC-contiguous): the fit path's width, a float32
+# batch, and edge shapes (one row, non-square, odd) at 4x4 taps, pads
+# (2, 1).  Every case also runs with the other input dtype at its shape.
+STEM_SHAPES = [(128, 112, 112, torch.bfloat16, True),
+               (8, 112, 112, torch.float32, False),
+               (1, 2, 2, torch.bfloat16, True),
+               (3, 4, 6, torch.bfloat16, False),
+               (2, 7, 5, torch.float32, True)]
+
+
+def _stem_inputs(dev, b, h, w, dtype, contiguous, seed):
+    """x [B, H, W, 12] and g [B, H, W, 64] from a seed; with
+    ``contiguous=False`` g is the NHWC view of an NCHW tensor, the
+    strides a cotangent may arrive with."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, 12, device=dev, generator=gen).to(dtype)
+    g = torch.randn(b, 64, h, w, device=dev, generator=gen).to(dtype)
+    g = g.permute(0, 2, 3, 1)
+    return x, (g.contiguous() if contiguous else g)
+
+
+def stem_bound(b, h, w, dtype):
+    """Least time for kernel I's work: x and g read once, dW written
+    once; 2·R·12,288 operations at the input type's peak (bf16 products
+    are exact in f32, so tensor cores could do them)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * h * w * (12 + 64) * elt + 64 * 12 * 16 * 4
+    flops = 2.0 * b * h * w * 64 * 12 * 16
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
+    return {"bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "f32_core_ms": flops / F32_FLOPS_PER_S * 1e3}
+
+
+def _pad_s2d_nchw(x_nhwc):
+    """The NCHW (channels-last) view of NHWC rows, zero-padded by the
+    s2d stem's ((2, 1), (2, 1))."""
+    x = torch.nn.functional.pad(x_nhwc.permute(0, 3, 1, 2), (2, 1, 2, 1))
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _ratio(d, scale):
+    """Largest d / scale, where scale == 0 allows only d == 0."""
+    r = torch.where(scale > 0, d / scale.clamp_min(1e-300),
+                    torch.where(d > 0, float("inf"), 0.0))
+    return float(r.max())
+
+
+def hold_stem_dw(x, g, where, detail, path="phase15"):
+    """Kernel I on (x, g) against its plain version (float32, TF32 off)
+    and against float64 truth; two launches bit-equal.  The bound per
+    output is ``n·2⁻²⁴·Σ|x||g|`` for a float32 sum whose longest chain
+    is n: ``2·L·2⁻²⁴·Σ|x||g|`` between the two implementations, L the
+    longer chain (the plain version's library order is not documented,
+    so its chain is taken as the whole sum, R terms), and
+    ``1.01·L_k·2⁻²⁴·Σ|x||g|`` between the kernel (chain L_k) and the
+    float64 truth.  Returns the largest |kernel − plain|."""
+    from active_learning_tpu_torch.device import full_float32
+    from active_learning_tpu_torch.ops import stem_conv as sc
+
+    b, h, w, _ = x.shape
+    before = sc.launches
+    got = sc.stem_dw(x, g)
+    again = sc.stem_dw(x, g)
+    torch.cuda.synchronize()
+    if sc.launches != before + 2:
+        raise AssertionError("stem_dw did not count its launches")
+    if got.dtype != torch.float32 or got.shape != (64, 12, 4, 4):
+        raise AssertionError(f"stem_dw returned {got.dtype} "
+                             f"{tuple(got.shape)}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"kernel I at {where}: two launches differ")
+    with full_float32():
+        plain = sc.stem_dw_plain(x, g)
+    truth = sc.stem_dw_plain(x.double(), g.double())
+    mag = sc.stem_dw_plain(x.double().abs(), g.double().abs())
+    lk = sc.chain_length(b, h, w)
+    lp = b * h * w
+    big = max(lk, lp)
+    d_plain = (got.double() - plain.double()).abs()
+    d_true = (got.double() - truth).abs()
+    d_ptrue = (plain.double() - truth).abs()
+    r_plain = _ratio(d_plain, 2 * big * F32_EPS * mag)
+    r_true = _ratio(d_true, 1.01 * lk * F32_EPS * mag)
+    r_ptrue = _ratio(d_ptrue, 1.01 * lp * F32_EPS * mag)
+    rec = {"path": path, "kernel": "stem_dw", "where": where,
+           "dtype": str(x.dtype), "g_contiguous": g.is_contiguous(),
+           "L_kernel": lk, "L_plain": lp, "max_abs_err": float(d_plain.max()),
+           "max_abs_err_vs_f64": float(d_true.max()),
+           "ratio_to_bound": r_plain, "ratio_to_bound_vs_f64": r_true,
+           "plain_ratio_vs_f64": r_ptrue, "bit_equal_relaunch": True}
+    detail.append(rec)
+    log(f"kernel I at {where} ({x.dtype}, g contiguous "
+        f"{g.is_contiguous()}): L = {big} (kernel {lk}), max |kernel - "
+        f"plain| {rec['max_abs_err']:.3g} = {r_plain:.3g} of the bound; vs "
+        f"f64 {rec['max_abs_err_vs_f64']:.3g} = {r_true:.3g} of "
+        f"1.01·L_k·u·Σ|x||g|; relaunch bit-equal")
+    if not (r_plain <= 1.0 and r_true <= 1.0 and r_ptrue <= 1.0):
+        raise AssertionError(f"kernel I at {where} outside its bound: {rec}")
+    return rec["max_abs_err"]
+
+
+def check_stem_dw(dev, detail):
+    """Kernel I at the phase-15 shapes in both input types, held against
+    its plain version, and timed at the fit path's width beside the
+    plain version (TF32 off, restored after) and the library wgrad
+    (``aten.convolution_backward`` on the pre-padded bf16 input).
+    Returns (max |kernel − plain|, times at the fit width)."""
+    from active_learning_tpu_torch.device import full_float32
+    from active_learning_tpu_torch.ops import stem_conv as sc
+
+    worst, times = 0.0, None
+    for i, (b, h, w, dtype, contiguous) in enumerate(STEM_SHAPES):
+        for dt in (dtype, torch.float32 if dtype == torch.bfloat16
+                   else torch.bfloat16):
+            x, g = _stem_inputs(dev, b, h, w, dt, contiguous, SEED + i)
+            worst = max(worst, hold_stem_dw(x, g, f"B={b} {h}x{w}",
+                                            detail))
+            if i == 0 and dt == torch.bfloat16:
+                xp = _pad_s2d_nchw(x)
+                gy = g.permute(0, 3, 1, 2)
+                wt = torch.empty(64, 12, 4, 4, device=dev, dtype=dt).to(
+                    memory_format=torch.channels_last)
+
+                def library():
+                    return torch.ops.aten.convolution_backward(
+                        gy, xp, wt, None, [1, 1], [0, 0], [1, 1], False,
+                        [0, 0], 1, [False, True, False])[1]
+
+                def plain():
+                    with full_float32():
+                        return sc.stem_dw_plain(x, g)
+
+                times = {"ms": cuda_ms(lambda: sc.stem_dw(x, g), 20),
+                         "plain_ms": cuda_ms(plain, 20),
+                         "library_ms": cuda_ms(library, 20),
+                         **stem_bound(b, h, w, dt)}
+                log(f"kernel I at B={b} {h}x{w} bf16: {times['ms']:.4f} ms "
+                    f"(plain {times['plain_ms']:.4f}, library wgrad "
+                    f"{times['library_ms']:.4f}, bound "
+                    f"{times['bound_ms']:.4f} by {times['bound_by']}; "
+                    f"{times['f32_core_ms']:.3f} ms at the f32 CUDA-core "
+                    "rate)")
+                del xp, gy, wt
+            del x, g
+            torch.cuda.empty_cache()
+    log(f"kernel I checks passed: max |kernel - plain| {worst:.3g}")
+    return worst, times
+
+
+# -- phase 16: the s2d stem through train, query and serve -------------------
+
+def _logits(model, rows, view):
+    from active_learning_tpu_torch.data.augment import apply_view
+    with torch.inference_mode():
+        x = apply_view(torch.from_numpy(rows).to(next(
+            model.parameters()).device), view, train=False)
+        return model(x).double().cpu()
+
+
+def check_s2d_logits(dev, variables, rows, view):
+    """16.1: full-width SSLResNet50 logits on the card from one set of
+    seeded weights, the default stem against the s2d stem on
+    ``fold_stem`` weights, in float32 (TF32 off) and bf16.  Tolerance:
+    the two networks compute one function (the fold is exact), so in a
+    precision p each errs against the float64 network (the CPU) by about
+    e_p = max|y_default(p) − y(f64)|; they may err in other directions,
+    and are held to |y_s2d(p) − y_default(p)| ≤ 4·e_p."""
+    from active_learning_tpu_torch.device import full_float32
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.weights import (
+        fold_stem, from_flax_variables)
+
+    sd = from_flax_variables(variables)
+    ref = get_network("imagenet", "SSLResNet50", dtype=torch.float64,
+                      device="cpu")
+    ref.load_state_dict(sd)
+    with torch.inference_mode():
+        from active_learning_tpu_torch.data.augment import apply_view
+        emb = ref.encoder(apply_view(torch.from_numpy(rows), view,
+                                     train=False).double())
+        y64 = torch.nn.functional.linear(emb.double(),
+                                         ref.linear.weight.double(),
+                                         ref.linear.bias.double())
+    del ref
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        ys = {}
+        for stem in ("default", "s2d"):
+            model = get_network("imagenet", "SSLResNet50", dtype=dtype,
+                                stem=stem, device=dev)
+            model.load_state_dict(fold_stem(sd) if stem == "s2d" else sd)
+            with full_float32():
+                ys[stem] = _logits(model, rows, view)
+            del model
+        e = float((ys["default"] - y64).abs().max())
+        e_s2d = float((ys["s2d"] - y64).abs().max())
+        d = float((ys["s2d"] - ys["default"]).abs().max())
+        out[dtype] = {"max_diff": d, "tolerance": 4 * e,
+                      "default_err_vs_f64": e, "s2d_err_vs_f64": e_s2d,
+                      "logit_scale": float(y64.abs().max())}
+        log(f"s2d vs default stem logits, {dtype}: max diff {d:.3g}, "
+            f"tolerance 4·e = {4 * e:.3g} (default's error vs f64 {e:.3g}, "
+            f"s2d's {e_s2d:.3g}; logits up to "
+            f"{out[dtype]['logit_scale']:.3g})")
+        if not (np.isfinite(d) and d <= 4 * e):
+            raise AssertionError(f"s2d logits differ from the default "
+                                 f"stem's in {dtype}: {out[dtype]}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _facsimile_224(n_train, n_test, num_classes=1000, seed=SEED, hw=224):
+    """Seeded 224-px rows with the ImageNet view contract (as
+    ``tests/test_learn_smoke_224.py``'s facsimile: IMAGENET_NORM, a
+    flip-only train view)."""
+    from active_learning_tpu_torch.data.core import (IMAGENET_NORM,
+                                                     ArrayDataset, ViewSpec)
+    from active_learning_tpu_torch.data.synthetic import (_class_templates,
+                                                          _make_images)
+
+    rng = np.random.default_rng(seed)
+    templates = _class_templates(num_classes, hw, rng)
+    tr, tr_t = _make_images(n_train, templates, rng, noise_sigma=12.0)
+    te, te_t = _make_images(n_test, templates, rng, noise_sigma=12.0)
+    del templates
+    train = ArrayDataset(tr, tr_t, num_classes,
+                         ViewSpec(IMAGENET_NORM, augment=True, pad=0))
+    test = ArrayDataset(te, te_t, num_classes, ViewSpec(IMAGENET_NORM))
+    return train, test, train.with_view(ViewSpec(IMAGENET_NORM))
+
+
+def run_s2d_experiment(root: str, n_train: int = 1024,
+                       num_classes: int = 1000, hw: int = 224,
+                       device: str = "cuda"):
+    """16.2: ``run_experiment`` on the card with the s2d stem:
+    SSLResNet50, 1000 classes, MarginSampler, 2 rounds of 256, the
+    ``default/imagenet`` TrainConfig (bf16, BN in training mode, B=128),
+    2 epochs a round, over seeded 224-px rows.  Launch counters zeroed
+    just before, read just after; kernel I must launch once per train
+    step."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.config import ExperimentConfig
+    from active_learning_tpu_torch.experiment import driver
+    from active_learning_tpu_torch.train import checkpoint as ckpt_lib
+    from active_learning_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    data = _facsimile_224(n_train, 128, num_classes, hw=hw)
+    log(f"s2d experiment data: {n_train} + 128 rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = ExperimentConfig(
+        dataset="imagenet", model="SSLResNet50", stem="s2d",
+        strategy="MarginSampler", rounds=2, round_budget=256, n_epoch=2,
+        early_stop_patience=2, exp_hash="s2d_smoke", device=device,
+        log_dir=os.path.join(root, "logs"),
+        ckpt_path=os.path.join(root, "ckpt"))
+    steps = {"n": 0, "shapes": set()}
+    train_step = Trainer.train_step
+
+    def counting(self, batch, *args, **kw):
+        steps["n"] += 1
+        steps["shapes"].add(tuple(batch["image"].shape))
+        return train_step(self, batch, *args, **kw)
+
+    Trainer.train_step = counting
+    try:
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        strategy = driver.run_experiment(cfg, data=data)
+        torch.cuda.synchronize(strategy.trainer.device)
+        wall = time.perf_counter() - t0
+        launches = ops.kernel_launches()
+    finally:
+        Trainer.train_step = train_step
+    model = strategy.model
+    exp_dir = os.path.join(root, "ckpt", "active_learning_s2d_smoke")
+    best = ckpt_lib.load_variables(os.path.join(exp_dir, "best_rd_1.msgpack"))
+    kshape = best["params"]["encoder"]["conv_stem"]["kernel"].shape
+    with open(os.path.join(exp_dir, "experiment_state.json")) as fh:
+        echo = json.load(fh)["config"]
+    phase_times = {}
+    with open(os.path.join(root, "logs", "metrics.jsonl")) as fh:
+        for ln in fh:
+            e = json.loads(ln)
+            if e["kind"] == "metric":
+                for k, v in e["metrics"].items():
+                    if k.endswith("_time") or k == "rd_test_accuracy":
+                        phase_times[f"{k}@{e['step']}"] = v
+    log(f"s2d experiment on the card: {wall:.1f} s, {steps['n']} train "
+        f"steps on rows {sorted(steps['shapes'])}, launches {launches}; "
+        f"phases {phase_times}")
+    if model.stem != "s2d" or (device == "cuda"
+                               and model.dtype != torch.bfloat16):
+        raise AssertionError(f"the experiment's model is {model.stem}, "
+                             f"{model.dtype}")
+    if tuple(kshape) != (4, 4, 12, 64) or echo.get("stem") != "s2d":
+        raise AssertionError(f"saved stem kernel {kshape}, echo stem "
+                             f"{echo.get('stem')}")
+    if steps["shapes"] != {(128, hw // 2, hw // 2, 12)}:
+        raise AssertionError(f"train batches {steps['shapes']}")
+    if launches["stem_dw"] != steps["n"] or steps["n"] < 1:
+        raise AssertionError(f"kernel I launched {launches['stem_dw']} "
+                             f"times over {steps['n']} train steps")
+    for k in ("prob_stats", "bn_act", "bn_train_stats", "bn_train_dx",
+              "fused_sgd"):
+        if launches[k] < 1:
+            raise AssertionError(f"the s2d experiment never launched {k}")
+    if int(strategy.pool.labeled.sum()) != 512:
+        raise AssertionError("the s2d experiment did not label 512 rows")
+    del strategy, model, data
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "train_steps": steps["n"], "launches": launches,
+            "phase_times": phase_times, "exp_dir": exp_dir}
+
+
+def run_s2d_serve(exp_dir: str, extra=()):
+    """16.3: the ``serve`` verb's server (``serve/cli.build_server``, what
+    ``python -m active_learning_tpu_torch serve`` runs) on the s2d
+    experiment, in this process: three 64-row /v1/score requests; the
+    served scores bit-equal to the offline prob-stats step over
+    host-s2d rows at the same bucket."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.data.pipeline import space_to_depth
+    from active_learning_tpu_torch.serve import cli
+    from active_learning_tpu_torch.strategies.scoring import (
+        make_prob_stats_step)
+
+    args = cli.get_parser().parse_args(
+        ["--experiment_dir", exp_dir, "--port", "0", "--max_batch", "64",
+         *extra])
+    server = cli.build_server(args)
+    ex = server.executor
+    if ex.model.stem != "s2d" or not ex.host_s2d:
+        raise AssertionError("serve did not resolve the s2d stem")
+    loop = asyncio.new_event_loop()
+    started = threading.Event()
+    stop = None
+
+    async def serve():
+        nonlocal stop
+        stop = asyncio.Event()
+        await server.start()
+        started.set()
+        await stop.wait()
+        await server.drain()
+
+    thread = threading.Thread(target=lambda: loop.run_until_complete(serve()),
+                              name="smoke-s2d-server")
+    thread.start()
+    if not started.wait(600):
+        raise RuntimeError("the s2d server did not start")
+    rng = np.random.default_rng(SEED + 16)
+    reqs = [rng.integers(0, 256, (64, *ex.image_shape), dtype=np.uint8)
+            for _ in range(3)]
+    try:
+        ops.reset_kernel_launches()
+        lat, resps = [], []
+        for rows in reqs:
+            t = time.perf_counter()
+            resps.append(_post(server.port, "/v1/score", _b64(rows)))
+            lat.append(time.perf_counter() - t)
+        launches = ops.kernel_launches()
+    finally:
+        loop.call_soon_threadsafe(stop.set)
+        thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("the s2d server did not drain")
+    step = make_prob_stats_step(ex.view)
+    for rows, resp in zip(reqs, resps):
+        dev = {"image": torch.from_numpy(space_to_depth(rows)).to(
+            ex.device)}
+        direct = {k: v.cpu().numpy() for k, v in step(ex.model, dev).items()}
+        for k in ("pred", "confidence", "margin", "entropy"):
+            served = np.asarray([r[k] for r in resp["scores"]],
+                                dtype=direct[k].dtype)
+            if not np.array_equal(served, direct[k]):
+                raise AssertionError(f"served {k} of the s2d model differs "
+                                     "from the offline step")
+    if launches["prob_stats"] < 3 or launches["bn_act"] < 1 or \
+            launches["stem_dw"] != 0:
+        raise AssertionError(f"s2d serve launches {launches}")
+    log(f"s2d serve: 3 x 64 rows, client latency "
+        f"{[round(v * 1e3, 2) for v in lat]} ms, served round "
+        f"{ex.served_round}; scores bit-equal to the offline step over "
+        f"host-s2d rows; launches {launches}")
+    return {"client_ms": [v * 1e3 for v in lat], "launches": launches}
+
+
+def time_s2d_step(dev, reps: int = 10):
+    """16.4: one B=128 train step of full-width SSLResNet50 (1000
+    classes, bf16, default/imagenet), s2d stem against the default stem
+    on the same rows, in turns (default, s2d, s2d, default), on the host
+    clock and with CUDA events; and the stem alone (forward and weight
+    gradient) both ways.  No claim: a record."""
+    from active_learning_tpu_torch.data.core import IMAGENET_NORM, ViewSpec
+    from active_learning_tpu_torch.data.pipeline import space_to_depth
+    from active_learning_tpu_torch.experiment.arg_pools import \
+        get_train_config
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.resnet import (S2DStemConv,
+                                                         init_weights)
+    from active_learning_tpu_torch.train.trainer import Trainer
+
+    cfg = get_train_config("default", "imagenet")
+    view = ViewSpec(IMAGENET_NORM, augment=True, pad=0)
+    rng = np.random.default_rng(SEED + 4)
+    rows = rng.integers(0, 256, (128, 224, 224, 3), dtype=np.uint8)
+    labels = rng.integers(0, 1000, 128).astype(np.int32)
+    runs = {}
+    for stem in ("default", "s2d"):
+        model = get_network("imagenet", "SSLResNet50", stem=stem, device=dev)
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        trainer = Trainer(model, cfg, 1000, dev)
+        model.train()
+        batch = trainer.to_device({
+            "image": space_to_depth(rows) if stem == "s2d" else rows,
+            "label": labels, "mask": np.ones(128, np.float32)})
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        w = torch.ones(1000, device=dev)
+        for _ in range(3):
+            trainer.train_step(batch, 0.1, w, view, gen)
+        runs[stem] = (trainer, batch, gen, w)
+    torch.cuda.synchronize()
+    host = {"default": [], "s2d": []}
+    device = {"default": [], "s2d": []}
+    for stem in ("default", "s2d", "s2d", "default"):
+        trainer, batch, gen, w = runs[stem]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            trainer.train_step(batch, 0.1, w, view, gen)
+        end.record()
+        torch.cuda.synchronize()
+        host[stem].append((time.perf_counter() - t0) * 1e3 / reps)
+        device[stem].append(start.elapsed_time(end) / reps)
+    from torch.profiler import ProfilerActivity, profile
+
+    busy = {}
+    for stem in ("default", "s2d"):
+        trainer, batch, gen, w = runs[stem]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                trainer.train_step(batch, 0.1, w, view, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+        summary = summarize_profile(prof, 3)
+        busy[stem] = {"wall_ms": wall,
+                      "device_ms": summary["device_ms_per_step"],
+                      "device_busy_share":
+                          summary["device_ms_per_step"] / wall,
+                      "launches_per_step":
+                          summary["kernel_launches_per_step"],
+                      "top_kernels_ms": summary[
+                          "top_kernels_ms_per_step"][:6]}
+    del runs
+    torch.cuda.empty_cache()
+
+    # The stem alone: conv forward + weight gradient at the fit width.
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x7 = torch.randn(128, 3, 224, 224, device=dev, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    w7 = torch.randn(64, 3, 7, 7, device=dev, generator=g,
+                     requires_grad=True)
+    x4 = torch.randn(128, 12, 112, 112, device=dev, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    w4 = torch.randn(64, 12, 4, 4, device=dev, generator=g,
+                     requires_grad=True)
+    gy = torch.randn(128, 64, 112, 112, device=dev, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+
+    def stem7():
+        y = torch.nn.functional.conv2d(
+            x7, w7.to(dtype=torch.bfloat16,
+                      memory_format=torch.channels_last), stride=2,
+            padding=3)
+        return torch.autograd.grad(y, [w7], gy)
+
+    def stem4():
+        return torch.autograd.grad(S2DStemConv.apply(x4, w4, torch.bfloat16),
+                                   [w4], gy)
+
+    stem_ms = {"default": cuda_ms(stem7, 20), "s2d": cuda_ms(stem4, 20)}
+    del x7, x4, gy
+    torch.cuda.empty_cache()
+    out = {"host_ms": host, "event_ms": device, "stem_fwd_dw_ms": stem_ms,
+           "profiled": busy, "reps": reps}
+    log(f"B=128 train step, host clock ms (default, s2d, s2d, default "
+        f"turns): default {host['default']}, s2d {host['s2d']}; CUDA "
+        f"events: default {device['default']}, s2d {device['s2d']}; the "
+        f"stem alone (forward + dW): default {stem_ms['default']:.3f} ms, "
+        f"s2d {stem_ms['s2d']:.3f} ms")
+    for stem, b in busy.items():
+        log(f"  profiled {stem} step: {b['wall_ms']:.2f} ms wall, "
+            f"{b['device_ms']:.2f} ms device busy "
+            f"({b['device_busy_share']:.0%}), "
+            f"{b['launches_per_step']:.0f} launches; top kernels "
+            f"{[(n[:60], round(ms, 3)) for n, ms in b['top_kernels_ms']]}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", default=None,
@@ -2723,6 +3259,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_smp_") as tmp:
         cli_smp, cli_smp_launches = run_cli_samplers(tmp)
 
+    # 15. Kernel I against its plain version.
+    t0 = time.perf_counter()
+    err_i, times_i = check_stem_dw(dev, detail)
+    log(f"kernel I checks: {time.perf_counter() - t0:.1f} s")
+
+    # 16. The s2d stem through train, query and serve.
+    s2d = {"logits": check_s2d_logits(dev, variables, rows[17][:4], view)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s2d_") as tmp:
+        s2d["experiment"] = run_s2d_experiment(tmp)
+        s2d["serve"] = run_s2d_serve(s2d["experiment"]["exp_dir"])
+    s2d["step"] = time_s2d_step(dev)
+    s2d["f32_step"] = check_train_step_f32_against_cpu(
+        stem="s2d", num_classes=16, hw=64, b=16)
+
     def total(runs):
         keys = next(iter(runs)).keys()
         return {k: sum(r[k] for r in runs) for k in keys}
@@ -2735,7 +3285,9 @@ def main() -> int:
              "balancing": balancing["launches"],
              "vaal_fit": vaal["fit_launches"],
              "vaal_query": vaal["query_launches"],
-             "cli_samplers": cli_smp_launches}
+             "cli_samplers": cli_smp_launches,
+             "s2d_experiment": s2d["experiment"]["launches"],
+             "s2d_serve": s2d["serve"]["launches"]}
 
     def count(*names):
         by = {p: sum(v[n] for n in names) for p, v in paths.items()}
@@ -2789,7 +3341,15 @@ def main() -> int:
          "replaces": "active_learning_tpu/strategies/balancing.py:61",
          **count("balancing_pick"), "max_abs_err": err_h, **times_h,
          "ms_by_shape": times_h_by_shape},
+        {"name": "stem_dw", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/stem_dw.cu",
+         "replaces": "active_learning_tpu/ops/backward.py:104",
+         **count("stem_dw"), "max_abs_err": err_i, **times_i},
     ]
+    early = [p for p in paths if not p.startswith("s2d_")]
+    if any(paths[p]["stem_dw"] for p in early):
+        raise AssertionError("kernel I launched on a path without the s2d "
+                             "stem")
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} never launched on the "
@@ -2806,6 +3366,7 @@ def main() -> int:
                                        "cli": cli_geo},
                        "samplers": {"balancing": balancing, "vaal": vaal,
                                     "cli": cli_smp},
+                       "s2d": s2d,
                        "checks": detail}, fh, indent=1, default=str)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,6 +16,8 @@ MarginSampler query, the command line, and the saved experiment state.
   defaults.
 * ``TrainConfig.score_batch_size`` set in an arg pool is the batch the
   scoring pass uses.
+* ``--stem s2d`` runs: a 10-class dataset keeps the CIFAR stem, and the
+  flag echoes into ``experiment_state.json``.
 """
 
 from __future__ import annotations
@@ -144,7 +146,7 @@ def test_without_a_card_the_cli_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume_training"], ["--stem", "s2d"], ["--grad_allreduce", "int8"],
+    ["--resume_training"], ["--grad_allreduce", "int8"],
     ["--dataset", "cifar10"], ["--imbalance_type", "exp"],
     ["--arg_pool", "ssp_finetuning"], ["--pool_sharding", "row"]])
 def test_flags_not_ported_exit_2_naming_the_roadmap(flags, capsys):
@@ -152,6 +154,36 @@ def test_flags_not_ported_exit_2_naming_the_roadmap(flags, capsys):
     assert port_main.main(CLI_FLAGS + ["--device", "cpu"] + flags) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err or "has no entry" in err
+
+
+def test_cli_stem_s2d_runs_and_echoes_on_cpu(tmp_path):
+    """``--stem s2d`` is carried: on the synthetic dataset (10 classes)
+    the model keeps the CIFAR stem, as in the JAX package, and the flag
+    echoes into ``experiment_state.json``, where ``serve`` reads it."""
+    assert cli.parse(CLI_FLAGS).stem is None
+    assert cli.parse(CLI_FLAGS + ["--stem", "s2d"]).stem == "s2d"
+    flags = list(CLI_FLAGS)
+    flags[flags.index("--rounds") + 1] = "1"
+    flags[flags.index("--n_epoch") + 1] = "1"
+    cmd = [sys.executable, "-m", "active_learning_tpu_torch", *flags,
+           "--stem", "s2d", "--device", "cpu",
+           "--log_dir", str(tmp_path / "logs"),
+           "--ckpt_path", str(tmp_path / "ckpt")]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    exp_dir = tmp_path / "ckpt" / "active_learning_cpu0"
+    meta = json.loads((exp_dir / "experiment_state.json").read_text())
+    assert meta["config"]["stem"] == "s2d"
+    best = jax_ckpt.load_variables(str(exp_dir / "best_rd_0.msgpack"))
+    assert best["params"]["encoder"]["conv_stem"]["kernel"].shape == \
+        (3, 3, 3, 64)
+    from active_learning_tpu_torch.serve import cli as serve_cli
+    model, _, _, _ = serve_cli.resolve_serve_setup(
+        serve_cli.get_parser().parse_args(
+            ["--experiment_dir", str(exp_dir), "--device", "cpu"]))
+    assert model.stem == "default" and model.cifar_stem
 
 
 def test_bn_eval_training_into_the_encoder_raises():
@@ -281,7 +313,8 @@ def test_score_batch_size_in_an_arg_pool_is_the_scoring_batch(tmp_path,
     seen = []
     real = strategy_base.gather_batch
     monkeypatch.setattr(strategy_base, "gather_batch",
-                        lambda ds, b, bs: seen.append(bs) or real(ds, b, bs))
+                        lambda ds, b, bs, **kw: seen.append(bs)
+                        or real(ds, b, bs, **kw))
     for pool, want in ((name, 24), ("synthetic", 100)):
         cfg = ExperimentConfig(dataset="synthetic", arg_pool=pool,
                                strategy="MASESampler", round_budget=8,

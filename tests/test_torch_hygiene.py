@@ -5,8 +5,8 @@ scikit-learn (the card's machine has none) or the JAX package.
 Two checks: every port module imports in a fresh interpreter where those
 names are blocked in ``sys.modules``; and an AST scan of every import
 statement in the package and in ``chip_smoke.py``.  The modules of the
-training, acquisition and last-samplers slices are also named one by
-one.
+training, acquisition, last-samplers and s2d slices are also named one
+by one.
 """
 
 from __future__ import annotations
@@ -104,8 +104,12 @@ SAMPLERS_SLICE = (
     "strategies/vaal", "models/vaal")
 
 
+# The s2d stem: kernel I's wrapper.
+S2D_SLICE = ("ops/stem_conv",)
+
+
 @pytest.mark.parametrize("module", TRAINING_SLICE + ACQUISITION_SLICE
-                         + SAMPLERS_SLICE)
+                         + SAMPLERS_SLICE + S2D_SLICE)
 def test_training_slice_module_is_checked(module):
     path = os.path.join(PKG, *module.split("/")) + ".py"
     assert path in _port_files()

@@ -20,6 +20,7 @@ from active_learning_tpu_torch.ops import boundary_radii as br
 from active_learning_tpu_torch.ops import fused_sgd as fs
 from active_learning_tpu_torch.ops import kcenter as kc
 from active_learning_tpu_torch.ops import prob_stats as ps
+from active_learning_tpu_torch.ops import stem_conv as sc
 from active_learning_tpu_torch.utils import threefry
 
 pytestmark = pytest.mark.cuda
@@ -459,3 +460,96 @@ def test_balancing_wrapper_raises_rather_than_falls_back(cuda_device):
                            eligible, centers, maj, rarest, False)
     with pytest.raises(ValueError, match="one device"):
         bal.balancing_pick(emb, eligible.cpu(), centers, maj, rarest, False)
+
+
+# -- kernel I: the s2d stem's weight gradient --------------------------------
+
+def _stem_inputs(dev, b, h, w, dtype, contiguous, seed, f=64):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, 12, device=dev, generator=g).to(dtype)
+    gy = torch.randn(b, f, h, w, device=dev, generator=g).to(dtype)
+    gy = gy.permute(0, 2, 3, 1)
+    return x, (gy.contiguous() if contiguous else gy)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,contiguous", [
+    (128, 112, 112, True), (8, 112, 112, False), (1, 2, 2, True),
+    (3, 4, 6, False), (2, 7, 5, True)])
+def test_stem_dw_kernel_matches_plain(cuda_device, dtype, b, h, w,
+                                      contiguous):
+    """Kernel I against its plain version (float32, TF32 off) and the
+    float64 truth at the fit width, a float32 batch and edge shapes.
+    Bound per output: two float32 sums of at most R = B·H·W terms differ
+    by at most 2·R·2⁻²⁴·Σ|x||g|; the kernel's own chain is L_k
+    (``chain_length``), so it is within 1.01·L_k·2⁻²⁴·Σ|x||g| of the
+    truth.  Two launches are bit-equal."""
+    x, g = _stem_inputs(cuda_device, b, h, w, dtype, contiguous, b + h)
+    before = sc.launches
+    got = sc.stem_dw(x, g)
+    again = sc.stem_dw(x, g)
+    torch.cuda.synchronize()
+    assert sc.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (64, 12, 4, 4)
+    assert torch.equal(got, again)
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        plain = sc.stem_dw_plain(x, g)
+    truth = sc.stem_dw_plain(x.double(), g.double())
+    mag = sc.stem_dw_plain(x.double().abs(), g.double().abs())
+    eps = 2.0 ** -24
+    lk = sc.chain_length(b, h, w)
+    big = max(lk, b * h * w)
+    assert ((got.double() - plain.double()).abs()
+            <= 2 * big * eps * mag).all()
+    assert ((got.double() - truth).abs() <= 1.01 * lk * eps * mag).all()
+
+
+@pytest.mark.parametrize("kh,kw,pads,f", [(3, 3, ((1, 1), (1, 1)), 16),
+                                          (8, 8, ((0, 0), (3, 4)), 64),
+                                          (2, 5, ((1, 0), (0, 2)), 12)])
+def test_stem_dw_kernel_other_taps_and_pads(cuda_device, kh, kw, pads, f):
+    """Other kernel sizes, pads and filter counts: more than 256
+    (tap, 4-filter) pairs spread over grid.y."""
+    g = torch.Generator(device=cuda_device).manual_seed(kh * kw)
+    x = torch.randn(3, 9, 10, 12, device=cuda_device, generator=g)
+    ho = 9 + pads[0][0] + pads[0][1] - kh + 1
+    wo = 10 + pads[1][0] + pads[1][1] - kw + 1
+    gy = torch.randn(3, ho, wo, f, device=cuda_device, generator=g)
+    got = sc.stem_dw(x, gy, kh, kw, pads)
+    truth = sc.stem_dw_plain(x.double(), gy.double(), kh, kw, pads)
+    mag = sc.stem_dw_plain(x.double().abs(), gy.double().abs(), kh, kw, pads)
+    lk = sc.chain_length(3, ho, wo)
+    assert got.shape == (f, 12, kh, kw)
+    assert ((got.double() - truth).abs()
+            <= 1.01 * lk * 2.0 ** -24 * mag).all()
+
+
+def test_stem_conv_function_on_the_card(cuda_device):
+    """S2DStemConv on the card: the weight gradient is kernel I's, in
+    float32, equal to the wrapper's on the same tensors."""
+    from active_learning_tpu_torch.models.resnet import S2DStemConv
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(4, 12, 16, 16, device=cuda_device, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    w = torch.randn(64, 12, 4, 4, device=cuda_device, generator=g,
+                    requires_grad=True)
+    y = S2DStemConv.apply(x, w, torch.bfloat16)
+    gy = torch.randn(y.shape, device=cuda_device, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    before = sc.launches
+    (dw,) = torch.autograd.grad(y, [w], gy)
+    assert sc.launches == before + 1
+    assert dw.dtype == torch.float32
+    assert torch.equal(dw, sc.stem_dw(x.permute(0, 2, 3, 1),
+                                      gy.permute(0, 2, 3, 1)))
+
+
+def test_stem_dw_wrapper_raises_rather_than_falls_back(cuda_device):
+    x, g = _stem_inputs(cuda_device, 2, 8, 8, torch.float32, True, 0)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        sc.stem_dw(x.half(), g.half())
+    with pytest.raises(ValueError, match="12 input channels"):
+        sc.stem_dw(torch.zeros(2, 8, 8, 3, device=cuda_device), g)
+    with pytest.raises(ValueError, match="share device"):
+        sc.stem_dw(x, g.cpu())

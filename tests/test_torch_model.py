@@ -147,8 +147,9 @@ def test_factory_resolution_follows_the_jax_package():
     assert m.dtype == torch.bfloat16
     assert all(b.fused_stats for b in m.modules() if isinstance(b, BatchNorm))
     # A CIFAR run with the global s2d choice keeps its stem; an ImageNet
-    # one asks for what is not ported yet.
+    # one gets the s2d stem, as in the reference.
     assert get_network("cifar10", "SSLResNet18", stem="s2d", device="cpu",
                        num_filters=4).cifar_stem
-    with pytest.raises(NotImplementedError, match="s2d"):
-        get_network("imagenet", "SSLResNet50", stem="s2d", device="cpu")
+    m = get_network("imagenet", "SSLResNet50", stem="s2d", device="cpu")
+    assert m.stem == "s2d" and not m.cifar_stem
+    assert m.encoder.conv_stem.weight.shape == (64, 12, 4, 4)

@@ -544,13 +544,16 @@ def test_initial_pools_are_bit_identical(kind):
 
 # -- one full train step ------------------------------------------------------
 
-def _tiny_pair(fused_stats: bool, seed: int = 0, freeze: bool = False):
-    """A stage_sizes (1, 1) CIFAR-stem BasicBlock classifier in both
-    packages (float32), with the JAX model's own init and batch
-    statistics redrawn from a numpy seed."""
+def _tiny_pair(fused_stats: bool, seed: int = 0, freeze: bool = False,
+               stem=None):
+    """A stage_sizes (1, 1) BasicBlock classifier in both packages
+    (float32), with the JAX model's own init and batch statistics
+    redrawn from a numpy seed: the CIFAR stem, or with ``stem``
+    ("default" or "s2d") the ImageNet stem."""
     jmodel = jax_resnet.SSLClassifier(
         stage_sizes=(1, 1), block_cls=jax_resnet.BasicBlock, num_classes=4,
-        cifar_stem=True, dtype=jnp.float32, freeze_feature=freeze,
+        cifar_stem=stem is None, stem=stem or "default", dtype=jnp.float32,
+        freeze_feature=freeze,
         bn_stats_dtype=jnp.bfloat16 if fused_stats else None)
     x0 = np.zeros((1, 8, 8, 3), np.float32)
     variables = jax.tree.map(np.asarray, jmodel.init(
@@ -562,9 +565,11 @@ def _tiny_pair(fused_stats: bool, seed: int = 0, freeze: bool = False):
         rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
         if p[-1].key == "var" else v, variables)
     model = resnet.SSLClassifier((1, 1), resnet.BasicBlock, 4,
-                                 cifar_stem=True, dtype=torch.float32,
+                                 cifar_stem=stem is None,
+                                 dtype=torch.float32,
                                  fused_stats=fused_stats,
-                                 freeze_feature=freeze)
+                                 freeze_feature=freeze,
+                                 stem=stem or "default")
     model = model.to(memory_format=torch.channels_last)
     weights.load_flax_variables(model, variables)
     return jmodel, variables, model
@@ -584,14 +589,22 @@ def _train_cfgs():
     return port, ref
 
 
-@pytest.mark.parametrize("fused_stats,freeze", [(True, False),
-                                                (False, False),
-                                                (True, True)])
-def test_one_train_step_matches_jax(fused_stats, freeze):
+@pytest.mark.parametrize("fused_stats,freeze,stem", [
+    pytest.param(True, False, None, id="True-False"),
+    pytest.param(False, False, None, id="False-False"),
+    pytest.param(True, True, None, id="True-True"),
+    pytest.param(True, False, "default", id="default-True-False"),
+    pytest.param(True, False, "s2d", id="s2d-True-False"),
+    pytest.param(False, False, "s2d", id="s2d-False-False")])
+def test_one_train_step_matches_jax(fused_stats, freeze, stem):
     """One f32 train step (non-augmenting view, B=8 with 2 padding rows)
     from carried weights, batch statistics and momentum; with
     ``freeze_feature`` BN runs in eval mode and the encoder gets a zero
-    gradient (weight decay and momentum still move it).  Tolerances:
+    gradient (weight decay and momentum still move it).  The CIFAR stem,
+    or the ImageNet stem (``stem``): the default 7x7/s2 conv, or the s2d
+    stem fed space-to-depth rows by both packages, whose weight gradient
+    is the JAX package's custom VJP and kernel I's plain version.
+    Tolerances:
     the loss to 1e-5 relative; the gradient norm to 1e-4 relative; new
     parameters and trace to 1e-5 absolute (they move by lr·t' ≈ 0.1·|g|,
     and the gradients agree to ~1e-5 of their size: the same network
@@ -600,13 +613,16 @@ def test_one_train_step_matches_jax(fused_stats, freeze):
     from active_learning_tpu.parallel import mesh as mesh_lib
     from active_learning_tpu.train.trainer import Trainer as JaxTrainer
 
-    jmodel, variables, model = _tiny_pair(fused_stats, freeze=freeze)
+    jmodel, variables, model = _tiny_pair(fused_stats, freeze=freeze,
+                                          stem=stem)
     port_cfg, jax_cfg = _train_cfgs()
     rng = np.random.default_rng(7)
     trace = jax.tree.map(
         lambda v: (rng.normal(size=v.shape) * 0.01).astype(np.float32),
         variables["params"])
     images = rng.integers(0, 256, (8, 8, 8, 3), dtype=np.uint8)
+    if stem == "s2d":
+        images = pipeline.space_to_depth(images)
     labels = rng.integers(0, 4, 8).astype(np.int32)
     mask = np.array([1] * 6 + [0] * 2, np.float32)
     view = JaxViewSpec(JAX_SYNTH_NORM, augment=False)
