@@ -6,7 +6,9 @@ names and defaults for every field the port reads; ``ExperimentConfig``
 keeps the CLI-facing fields of the training slice.  Fields of the JAX
 package that steer paths the port does not carry yet (device-resident
 feeds, the disk tier, multi-host, profiling, fault injection) are left
-out rather than carried as dead knobs.
+out rather than carried as dead knobs.  The mesh fields (``num_devices``,
+``grad_allreduce``, ``scale_batch`` and the multi-host rendezvous) keep
+the JAX package's names and defaults.
 """
 
 from __future__ import annotations
@@ -116,6 +118,12 @@ class TrainConfig:
     fused_optimizer: str = "auto"
     # Momentum-buffer storage dtype on the fused path: "f32" or "bf16".
     optim_state_dtype: str = "f32"
+    # Gradient sync over N ranks: "f32" (one flat all_reduce), "int8"
+    # (the block-scaled int8 sync; the reduce-scatter wire form above 8
+    # ranks), "int8_rs" (always the reduce-scatter form) or "auto" (int8
+    # on any multi-rank mesh).  One rank: always f32.  The int8 modes are
+    # gated on the learning probe of ``experiment/driver.py``.
+    grad_allreduce: str = "f32"
     # Rows per acquisition-scoring batch; None = the evaluation batch
     # (Trainer.eval_batch_size).  Scores are per-example statistics under
     # eval-mode BN, so this changes throughput only.
@@ -169,6 +177,12 @@ class ExperimentConfig:
     stem: Optional[str] = None
     fused_optimizer: Optional[str] = None
     optim_state_dtype: Optional[str] = None
+    # Overrides TrainConfig.grad_allreduce ("f32"/"int8"/"int8_rs"/"auto").
+    grad_allreduce: Optional[str] = None
+    # Large-batch scaling ("auto"/"off"/None = off): auto multiplies the
+    # train batch by the rank count (the arg pool's batch becomes per
+    # rank), scales lr linearly and raises the cosine warmup to 5 epochs.
+    scale_batch: Optional[str] = None
 
     # Coreset / BADGE scale controls (the reference's parser.py:74-79):
     # caps on the labeled and unlabeled rows a selection runs over (the
@@ -191,6 +205,18 @@ class ExperimentConfig:
 
     # "cuda" (the default; raises without a card) or "cpu".
     device: str = "cuda"
+
+    # Ranks of the data-parallel mesh (-1 = every visible card; 1 on the
+    # CPU).  More than one rank is one process each: nccl with a card per
+    # rank, gloo with --device cpu.
+    num_devices: int = -1
+    # Multi-process rendezvous (all None: one process, or the ranks the
+    # CLI starts itself): host:port of rank 0, the number of processes
+    # and this one's rank.  ckpt_path must be shared: rank 0 writes,
+    # every rank reads.
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
 
     def resolved_init_pool_size(self) -> int:
         if self.init_pool_size == -1:

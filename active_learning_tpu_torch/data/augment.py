@@ -9,17 +9,21 @@ per-row crop offsets and a flip mask, so a test can hand the port the
 very numbers ``jax.random`` drew and compare the pixels bit for bit;
 ``random_crop_flip`` draws them from a ``torch.Generator`` (the port's
 stand-in for the JAX step's PRNG key: the same distributions, other
-numbers).
+numbers).  With ``rows``, a rank of N draws for the whole global batch
+and keeps its own rows' draws, so N ranks augment as one does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .core import Normalization, ViewSpec
+
+# (rows of the global batch, this rank's slice of them).
+Rows = Tuple[int, slice]
 
 
 def _is_s2d(images: torch.Tensor, norm: Normalization) -> bool:
@@ -78,32 +82,42 @@ def crop_flip(images: torch.Tensor, offsets: torch.Tensor,
 
 
 def _draw_crop_flip(b: int, generator: torch.Generator, pad: int,
-                    dev: torch.device):
-    offsets = torch.randint(0, 2 * pad + 1, (b, 2), generator=generator,
+                    dev: torch.device, rows: Optional[Rows] = None):
+    """Offsets and flips for ``b`` rows, or with ``rows = (global_b,
+    slice)`` for a global batch of ``global_b`` rows cut to the slice."""
+    n, keep = (b, slice(None)) if rows is None else rows
+    offsets = torch.randint(0, 2 * pad + 1, (n, 2), generator=generator,
                             device=dev)
-    flip = torch.rand(b, generator=generator, device=dev) < 0.5
+    flip = torch.rand(n, generator=generator, device=dev) < 0.5
+    offsets, flip = offsets[keep], flip[keep]
+    if flip.shape[0] != b:
+        raise ValueError(f"rows {rows} do not cut {b} rows")
     return offsets, flip
 
 
 def random_crop_flip(images: torch.Tensor, generator: torch.Generator,
-                     pad: int = 4) -> torch.Tensor:
+                     pad: int = 4, rows: Optional[Rows] = None
+                     ) -> torch.Tensor:
     """``crop_flip`` with offsets uniform in ``[0, 2·pad]`` and flips
     with probability 1/2, drawn from ``generator`` (on the images'
     device)."""
     offsets, flip = _draw_crop_flip(images.shape[0], generator, pad,
-                                    images.device)
+                                    images.device, rows)
     return crop_flip(images, offsets, flip, pad)
 
 
 def apply_view(images_u8: torch.Tensor, view: ViewSpec,
                generator: Optional[torch.Generator] = None,
-               train: bool = True) -> torch.Tensor:
+               train: bool = True, rows: Optional[Rows] = None
+               ) -> torch.Tensor:
     """A dataset view's transform on the device: augment=True and
     train=True crop and flip the raw uint8 rows, then normalize;
     otherwise normalize only (the val transform).  Space-to-depth rows
     take the flip-only train view (``view.pad`` must be 0), with the
     draws ``random_crop_flip`` makes: at one generator state the s2d
-    rows come out as space-to-depth of the raw rows' result."""
+    rows come out as space-to-depth of the raw rows' result.  ``rows =
+    (global_b, slice)``: ``images_u8`` is that slice of a global batch,
+    and the draws are the global batch's, cut to it."""
     x = images_u8
     if view.augment and train:
         if generator is None:
@@ -112,8 +126,9 @@ def apply_view(images_u8: torch.Tensor, view: ViewSpec,
             if view.pad != 0:
                 raise ValueError("space-to-depth rows take the flip-only "
                                  f"train view (pad 0), not pad {view.pad}")
-            _, flip = _draw_crop_flip(x.shape[0], generator, 0, x.device)
+            _, flip = _draw_crop_flip(x.shape[0], generator, 0, x.device,
+                                      rows)
             x = s2d_flip(x, flip)
         else:
-            x = random_crop_flip(x, generator, pad=view.pad)
+            x = random_crop_flip(x, generator, pad=view.pad, rows=rows)
     return normalize(x, view.normalization)

@@ -7,7 +7,9 @@ index math on an injected ``np.random.Generator``, so at the same
 generator state the port's batches are bit-identical to the JAX
 package's.  Every batch carries the pool indices of its rows.  With
 ``s2d=True`` the rows leave the host in the space-to-depth layout of the
-s2d stem (``space_to_depth``), the same bytes re-laid.
+s2d stem (``space_to_depth``), the same bytes re-laid.  With ``rows``
+(a slice of the fixed-shape batch) only those rows are gathered: one
+rank's share of a global batch.
 """
 
 from __future__ import annotations
@@ -63,12 +65,14 @@ def space_to_depth(images: np.ndarray, block: int = 2) -> np.ndarray:
 
 
 def gather_batch(dataset: Dataset, batch_idxs: np.ndarray,
-                 batch_size: int, s2d: bool = False
-                 ) -> Dict[str, np.ndarray]:
+                 batch_size: int, s2d: bool = False,
+                 rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
     """One fixed-shape batch: uint8 images (space-to-depth with
     ``s2d``), int32 labels and pool indices, float32 validity mask (0 on
-    padding rows)."""
+    padding rows); with ``rows``, only that slice of it."""
     idxs, mask = padded_batch_layout(batch_idxs, batch_size)
+    if rows is not None:
+        idxs, mask = idxs[rows], mask[rows]
     n_real = int(mask.sum())
     images = dataset.gather(idxs[:n_real])
     if n_real < len(idxs):
@@ -92,6 +96,7 @@ def iterate_batches(
     prefetch: int = 2,
     num_threads: int = 0,
     s2d: bool = False,
+    rows: Optional[slice] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield fixed-shape host batches (space-to-depth with ``s2d``);
     with ``num_threads > 0`` worker threads gather ahead (at most
@@ -101,7 +106,7 @@ def iterate_batches(
                                 drop_last=drop_last)
     if num_threads <= 0:
         for b in batches:
-            yield gather_batch(dataset, b, batch_size, s2d)
+            yield gather_batch(dataset, b, batch_size, s2d, rows)
         return
 
     from collections import deque
@@ -114,13 +119,13 @@ def iterate_batches(
         it = iter(batches)
         for b in itertools.islice(it, num_threads + max(1, prefetch)):
             pending.append(executor.submit(gather_batch, dataset, b,
-                                           batch_size, s2d))
+                                           batch_size, s2d, rows))
         while pending:
             batch = pending.popleft().result()
             nxt = next(it, None)
             if nxt is not None:
                 pending.append(executor.submit(gather_batch, dataset, nxt,
-                                               batch_size, s2d))
+                                               batch_size, s2d, rows))
             yield batch
     finally:
         executor.shutdown(wait=False, cancel_futures=True)

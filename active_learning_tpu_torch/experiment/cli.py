@@ -7,16 +7,27 @@ with the JAX CLI's flag names for everything the port carries:
         [--device cpu]
 
 ``--device`` (the port's own flag) defaults to ``cuda`` and raises
-without a card; ``cpu`` runs the kernels' plain versions.  A flag of the
-JAX CLI that the port does not carry yet (``--resume_training``, the
-resident/stream/int8/fleet knobs, ...) and a dataset or strategy not
-ported yet exit with status 2 and a message naming ROADMAP.md; nothing
-is silently ignored.
+without a card; ``cpu`` runs the kernels' plain versions.
+
+``--num_devices N`` (default -1: every visible card, 1 on the CPU) with
+N > 1 starts N ranks, one process each, joined over localhost: NCCL
+with one card per rank on ``cuda``, gloo with ``--device cpu``.
+``--coordinator_address host:port --num_processes N --process_id R``
+makes this process rank R of N instead (one per host or card; start
+each yourself).  ``--grad_allreduce`` and ``--scale_batch`` take the
+JAX CLI's values.
+
+A flag of the JAX CLI that the port does not carry yet
+(``--resume_training``, the resident/stream/fleet knobs,
+``--pool_sharding``, ...) and a dataset or strategy not ported yet exit
+with status 2 and a message naming ROADMAP.md; nothing is silently
+ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import uuid
 from typing import List, Optional
 
 from ..config import ExperimentConfig, VAALConfig
@@ -36,11 +47,8 @@ UNSUPPORTED_FLAGS = {
     "--disable_diagnostics": False, "--watchdog_action": True,
     "--fault_spec": True, "--resident_scoring_bytes": True,
     "--pool_sharding": True, "--pool_backend": True, "--train_feed": True,
-    "--feed_workers": True, "--grad_allreduce": True,
-    "--scale_batch": True, "--round_pipeline": True,
-    "--compilation_cache_dir": True, "--num_devices": True,
-    "--coordinator_address": True, "--num_processes": True,
-    "--process_id": True,
+    "--feed_workers": True, "--round_pipeline": True,
+    "--compilation_cache_dir": True,
 }
 
 PORTED_DATASETS = ("synthetic",)
@@ -105,9 +113,29 @@ def get_parser() -> argparse.ArgumentParser:
                    dest="vaal_adversary_param", type=float, default=10.0)
     p.add_argument("--lr_vae", type=float, default=5e-5)
     p.add_argument("--lr_discriminator", type=float, default=1e-3)
+    p.add_argument("--grad_allreduce", type=str, default=None,
+                   choices=["f32", "int8", "int8_rs", "auto"],
+                   help="gradient sync over N ranks: f32 (one all_reduce), "
+                        "int8 (block-scaled int8 payload; the "
+                        "reduce-scatter form above 8 ranks), int8_rs "
+                        "(always reduce-scatter), auto (int8 on more than "
+                        "one rank); the int8 modes must pass the learning "
+                        "probe or the run degrades to f32")
+    p.add_argument("--scale_batch", type=str, default=None,
+                   choices=["auto", "off"],
+                   help="auto: train batch and lr x ranks, >=5-epoch "
+                        "cosine warmup (the arg pool's batch becomes per "
+                        "rank)")
     p.add_argument("--run_seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--num_devices", type=int, default=-1,
+                   help="ranks, one process each (-1 = every visible "
+                        "card; 1 on the CPU)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0, to join a multi-process run")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     for flag, takes_value in UNSUPPORTED_FLAGS.items():
         p.add_argument(flag, action=_NotPorted, nargs=1 if takes_value else 0,
                        help=argparse.SUPPRESS)
@@ -133,7 +161,11 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
                         adversary_param=args.vaal_adversary_param,
                         lr_vae=args.lr_vae,
                         lr_discriminator=args.lr_discriminator),
-        run_seed=args.run_seed, device=args.device)
+        grad_allreduce=args.grad_allreduce, scale_batch=args.scale_batch,
+        run_seed=args.run_seed, device=args.device,
+        num_devices=args.num_devices,
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes, process_id=args.process_id)
 
 
 def parse(argv: List[str]) -> ExperimentConfig:
@@ -160,9 +192,16 @@ def parse(argv: List[str]) -> ExperimentConfig:
     return args_to_config(args)
 
 
+def _rank_main(rank: int, world: int, cfg: ExperimentConfig) -> None:
+    from .driver import run_experiment
+
+    run_experiment(cfg)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     import sys
 
+    from ..parallel import mesh as mesh_lib
     from .driver import run_experiment
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -170,5 +209,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = parse(argv)
     except SystemExit as exc:
         return int(exc.code or 0)
+    multi_process = (cfg.coordinator_address is not None
+                     or (cfg.num_processes or 1) > 1)
+    world = mesh_lib.resolve_num_devices(cfg.num_devices, cfg.device)
+    if world > 1 and not multi_process:
+        # Every rank must name the same experiment directory.
+        if cfg.exp_hash is None:
+            cfg.exp_hash = uuid.uuid4().hex[:9]
+        mesh_lib.launch_ranks(_rank_main, world, (cfg,),
+                              backend=mesh_lib.default_backend(cfg.device))
+        return 0
     run_experiment(cfg)
     return 0

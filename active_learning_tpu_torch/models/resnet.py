@@ -28,7 +28,9 @@ encoder takes either layout: 3-channel rows are re-laid on the device,
 through.  The stem conv trains through ``S2DStemConv``, whose weight
 gradient is kernel I (``ops/stem_conv``, float32 accumulation).
 
-Training mode (``model.train()``) uses batch statistics and updates the
+Training mode (``model.train()``) uses batch statistics (the global
+batch's when ``set_sync_group`` gave the BatchNorms a group of ranks,
+as the JAX model's ``clone(axis_name=...)`` does) and updates the
 running statistics outside the graph, ``ra = 0.9·ra + 0.1·batch`` with
 the biased batch variance, as flax does.  Eval-mode BatchNorm has no
 backward (kernel B is forward-only), so a forward that needs gradients
@@ -241,6 +243,9 @@ class BatchNorm(nn.Module):
         self.dtype = dtype
         self.fused_stats = fused_stats
         self.eps = eps
+        # The ranks whose rows share the batch statistics (None: this
+        # rank's batch alone); see ``set_sync_group``.
+        self.group = None
         self._coeffs: Optional[bn_act_lib.Coefficients] = None
         self._coeffs_key: Optional[Tuple] = None
 
@@ -262,7 +267,7 @@ class BatchNorm(nn.Module):
         if self.training:
             y, mean, var = bn_train_lib.bn_train(
                 x, self.scale, self.bias, self.eps, self.fused_stats,
-                residual, relu)
+                residual, relu, self.group)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -464,6 +469,15 @@ def resnet50(num_classes: int, cifar_stem: bool = False,
     return SSLClassifier(stage_sizes, BottleneckBlock, num_classes,
                          cifar_stem, dtype, fused_stats, num_filters,
                          freeze_feature, stem)
+
+
+def set_sync_group(model: nn.Module, group) -> None:
+    """Training-mode statistics over the ranks of ``group`` (a
+    ``parallel.mesh.Mesh``; None: each rank's own batch) for every
+    BatchNorm of ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.group = group
 
 
 @torch.no_grad()

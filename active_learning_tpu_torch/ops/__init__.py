@@ -3,8 +3,10 @@ kernel B ``bn_act`` (Triton), kernel C ``bn_train`` (CUDA, three device
 functions), kernel D ``fused_sgd`` (CUDA), kernel E ``kcenter`` (CUDA:
 fold + top-q, fold + D² draw, initial min), kernel F ``boundary_radii``
 (CUDA: radii, pair norms), kernel G ``badge`` (CUDA), kernel H
-``balancing`` (CUDA: the balancing pick) and kernel I ``stem_conv``
-(CUDA: the s2d stem's weight gradient).  Each wrapper counts its
+``balancing`` (CUDA: the balancing pick), kernel I ``stem_conv``
+(CUDA: the s2d stem's weight gradient) and kernel J ``int8_sync``
+(CUDA: the int8 gradient sync's block absmax, quantize, dequantizing
+sum and reduce-scatter re-quantization).  Each wrapper counts its
 launches; ``kernel_launches`` reads them all, so a run can
 show which kernels its path went through."""
 
@@ -15,7 +17,7 @@ from typing import Dict
 
 def kernel_launches() -> Dict[str, int]:
     from . import (badge, balancing, bn_act, bn_train, boundary_radii,
-                   fused_sgd, kcenter, prob_stats, stem_conv)
+                   fused_sgd, int8_sync, kcenter, prob_stats, stem_conv)
     return {"prob_stats": prob_stats.launches, "bn_act": bn_act.launches,
             "bn_train_stats": bn_train.stats_launches,
             "bn_train_bwd_reduce": bn_train.reduce_launches,
@@ -28,12 +30,16 @@ def kernel_launches() -> Dict[str, int]:
             "head_pair_norms": boundary_radii.pair_norms_launches,
             "badge_factors": badge.launches,
             "balancing_pick": balancing.launches,
-            "stem_dw": stem_conv.launches}
+            "stem_dw": stem_conv.launches,
+            "int8_absmax": int8_sync.absmax_launches,
+            "int8_quantize": int8_sync.quantize_launches,
+            "int8_dequant_sum": int8_sync.dequant_launches,
+            "int8_sum_requantize": int8_sync.requantize_launches}
 
 
 def reset_kernel_launches() -> None:
     from . import (badge, balancing, bn_act, bn_train, boundary_radii,
-                   fused_sgd, kcenter, prob_stats, stem_conv)
+                   fused_sgd, int8_sync, kcenter, prob_stats, stem_conv)
     prob_stats.launches = 0
     bn_act.launches = 0
     bn_train.reset_launches()
@@ -43,3 +49,4 @@ def reset_kernel_launches() -> None:
     badge.launches = 0
     balancing.launches = 0
     stem_conv.launches = 0
+    int8_sync.reset_launches()

@@ -12,7 +12,15 @@ version only on a CPU tensor:
   * ``bn_bwd_reduce(gy, x) -> (Σgy, Σgy·x)``;
   * ``bn_dx(gy, x, mul, c2, c1) -> gy·mul + x·c2 + c1``, rounded once.
 
-``bn_train`` puts them behind one ``torch.autograd.Function``.  The
+``bn_train`` puts them behind one ``torch.autograd.Function``.  With a
+``group`` of N ranks (the port's ``parallel.mesh.Mesh``: anything with
+``world_size`` and an in-place ``all_reduce``), the statistics are the
+global batch's, as the JAX model's ``axis_name`` branch
+(``models/resnet.py:171-187``) computes them: the forward all-reduces
+the ``[2, C]`` (E[x], E[x²]) of kernel C and divides by N (``pmean``),
+the backward all-reduces (Σgy, Σgy·x) and counts the rows of every
+rank for dx, while ``scale``'s and ``bias``'s gradients stay this rank's
+share (the gradient sync sums them).  The
 normalize, residual add and ReLU of the forward are kernel B
 (``ops/bn_act.py``) with the batch statistics' coefficients; the
 per-channel ``[C]`` math (variance clamp, rsqrt, the backward's
@@ -241,8 +249,11 @@ class BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, residual, relu: bool, eps: float,
-                fused_stats: bool):
+                fused_stats: bool, group=None):
         mean, mean2 = bn_stats(x)
+        if group is not None and group.world_size > 1:
+            stats = group.all_reduce(torch.stack([mean, mean2]))
+            mean, mean2 = stats / group.world_size
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         coeffs = bn_act_lib.bn_coefficients(scale, bias, mean, var, eps,
                                             x.dtype, fused_stats)
@@ -252,6 +263,7 @@ class BatchNormTrain(torch.autograd.Function):
         ctx.has_residual = residual is not None
         ctx.eps = eps
         ctx.fused_stats = fused_stats
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -264,25 +276,40 @@ class BatchNormTrain(torch.autograd.Function):
                                                     device=gy.device))
         s1, s2 = bn_bwd_reduce(gy, x)
         n = float(_rows(x))
-        dscale, dbias, mul, c2, c1 = backward_coefficients(
-            s1, s2, scale.to(s1.dtype), mean, mean2, ctx.eps, n, x.dtype,
-            ctx.fused_stats)
+
+        def coefficients(a, b, rows):
+            return backward_coefficients(a, b, scale.to(a.dtype), mean,
+                                         mean2, ctx.eps, rows, x.dtype,
+                                         ctx.fused_stats)
+
+        group = ctx.group
+        if group is not None and group.world_size > 1:
+            # dx reaches every rank's rows through the global statistics:
+            # global sums.  The parameters' gradients are this rank's
+            # share; the gradient sync adds the others'.
+            dscale, dbias = coefficients(s1, s2, n)[:2]
+            s1, s2 = group.all_reduce(torch.stack([s1, s2]))
+            _, _, mul, c2, c1 = coefficients(s1, s2, n * group.world_size)
+        else:
+            dscale, dbias, mul, c2, c1 = coefficients(s1, s2, n)
         dx = bn_dx(gy, x, mul, c2, c1)
         gres = gy if ctx.has_residual else None
         return (dx, dscale.to(scale.dtype), dbias.to(scale.dtype), gres,
-                None, None, None)
+                None, None, None, None)
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              eps: float, fused_stats: bool,
-             residual: Optional[torch.Tensor] = None, relu: bool = False):
+             residual: Optional[torch.Tensor] = None, relu: bool = False,
+             group=None):
     """Training-mode BatchNorm of a channels-last activation: returns
     ``(y, mean, var)`` with the biased batch variance ``max(E[x²] −
     E[x]², 0)``.  ``fused_stats`` picks ``FusedBatchNorm``'s formula
     (``x·mul − sub`` with ``mul``, ``sub`` rounded to ``x.dtype``), else
-    flax ``nn.BatchNorm``'s (float32 coefficients)."""
+    flax ``nn.BatchNorm``'s (float32 coefficients).  ``group``: the
+    ranks whose rows share the statistics (None: this batch alone)."""
     return BatchNormTrain.apply(x, scale, bias, residual, bool(relu),
-                                float(eps), bool(fused_stats))
+                                float(eps), bool(fused_stats), group)
 
 
 _fns = {}

@@ -30,6 +30,7 @@ from ..data.core import Dataset
 from ..data.pipeline import batch_index_lists, gather_batch
 from ..models.resnet import init_weights
 from ..models.weights import load_flax_variables
+from ..parallel import mesh as mesh_lib
 from ..pool import PoolState
 from ..registry import STRATEGIES
 from ..train import checkpoint as ckpt_lib
@@ -215,7 +216,7 @@ class Strategy:
         else the evaluation batch (one policy for both passes)."""
         explicit = self.train_cfg.score_batch_size
         if explicit:
-            return int(explicit)
+            return self.trainer.padded_batch_size(int(explicit))
         return self.trainer.eval_batch_size(self.al_set)
 
     def _get_score_step(self, kind: str) -> scoring.Step:
@@ -248,7 +249,9 @@ class Strategy:
         padded), model in eval mode; host arrays aligned with ``idxs``,
         floating outputs in float32.  The rows leave the host in the
         space-to-depth layout when ``host_s2d`` (default: the model has
-        the s2d stem, JAX ``strategies/base.py:497-507``)."""
+        the s2d stem, JAX ``strategies/base.py:497-507``).  On N ranks
+        each rank scores its rows of every batch and ``fetch`` gathers
+        the outputs, so every rank returns the whole result."""
         if host_s2d is None:
             host_s2d = self.trainer.host_s2d
         self.model.eval()
@@ -258,17 +261,31 @@ class Strategy:
             reset()
         bs = self._score_batch_size()
         dev = self.trainer.device
+        mesh = self.trainer.mesh
+        rows = self.trainer.local_rows(bs)
         parts: Dict[str, list] = {}
-        for b in batch_index_lists(np.asarray(idxs), bs):
-            batch = gather_batch(self.al_set, b, bs, s2d=host_s2d)
+        batches = batch_index_lists(np.asarray(idxs), bs)
+        for b in batches:
+            batch = gather_batch(self.al_set, b, bs, s2d=host_s2d, rows=rows)
             out = step(self.model,
                        {"image": torch.from_numpy(batch["image"]).to(dev)})
             for k, v in out.items():
                 if keys is None or k in keys:
                     if v.is_floating_point():
                         v = v.to(torch.float32)
-                    parts.setdefault(k, []).append(v[:len(b)].cpu().numpy())
-        return {k: np.concatenate(v) for k, v in parts.items()}
+                    if rows is None:
+                        v = v[:len(b)]
+                    parts.setdefault(k, []).append(v.cpu().numpy())
+        if rows is None:
+            return {k: np.concatenate(v) for k, v in parts.items()}
+        out = {}
+        for k, v in parts.items():
+            # [rank][batch][row] -> [batch][rank][row]: the batch order.
+            got = mesh_lib.fetch(np.concatenate(v), mesh)
+            got = got.reshape(mesh.world_size, len(batches), -1,
+                              *got.shape[1:]).swapaxes(0, 1)
+            out[k] = got.reshape(-1, *got.shape[3:])[:len(idxs)]
+        return out
 
 
 def register_strategy(name: str):

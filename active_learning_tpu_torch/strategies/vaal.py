@@ -134,6 +134,11 @@ class VAALSampler(Strategy):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
+        if self.trainer.mesh.world_size > 1:
+            raise NotImplementedError(
+                "VAALSampler on more than one rank (its VAE and "
+                "discriminator co-step is not synced across ranks) is "
+                "still to be ported (ROADMAP.md)")
         vcfg = self.cfg.vaal
         h, w = self.al_set.image_shape[:2]
         self.crop = crop_size_for(h)

@@ -5,6 +5,10 @@ once on the host.
 Ranks follow ``jax.lax.top_k``: the total order of float32 (so -0 ranks
 below +0) and, among equal values, the lower index first.
 ``torch.topk`` leaves the order of ties unspecified, so it is not used.
+
+On N ranks each rank counts its own rows and the totals are summed
+over the ranks once, before the division (the JAX package's sharded
+eval step, whose partitioner sums the counts).
 With ``key`` the total-order integer of each logit, top-1 is the first
 maximum of ``key``, and label ``y`` is in the top k exactly when
 ``#{j: key_j > key_y} + #{j < y: key_j == key_y} < k``.
@@ -12,7 +16,7 @@ maximum of ``key``, and label ``y`` is in the top k exactly when
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -66,18 +70,27 @@ def batch_metric_counts(logits: torch.Tensor, labels: torch.Tensor,
     }
 
 
-def accumulate_metrics(count_iter: Iterable[Dict[str, torch.Tensor]]
+def accumulate_metrics(count_iter: Iterable[Dict[str, torch.Tensor]],
+                       all_reduce: Optional[Callable[[torch.Tensor],
+                                                     torch.Tensor]] = None
                        ) -> Dict[str, np.ndarray]:
     """Sum per-batch counts on the device (one host fetch at the end) and
     derive the reference's metric keys: accuracy, top_5_accuracy,
     accuracy_byclass, corrects_byclass, count_byclass, count, and the
-    calibration bins."""
+    calibration bins.  ``all_reduce`` (a rank group's in-place sum) adds
+    the other ranks' totals, all keys in one flat vector; every rank
+    must pass the same number of batches."""
     totals = None
     for counts in count_iter:
         if totals is None:
             totals = dict(counts)
         else:
             totals = {k: totals[k] + counts[k] for k in totals}
+    if totals is not None and all_reduce is not None:
+        flat = all_reduce(torch.cat([v.reshape(-1) for v in totals.values()]))
+        sizes = [v.numel() for v in totals.values()]
+        totals = {k: part.reshape(v.shape) for (k, v), part in
+                  zip(totals.items(), flat.split(sizes))}
     if totals is None:
         return {
             "accuracy": np.float32(0.0), "top_5_accuracy": np.float32(0.0),

@@ -27,6 +27,18 @@ from the host (JAX ``trainer.py:162-164``), except under a
 ``batch_hook``: VAAL's VAE is 3-channel, so the hook's batch stays raw
 and the model re-lays it on the device.
 
+On a mesh of N ranks (``parallel/mesh.py``) each rank feeds its
+contiguous rows of the global batch (padded to a multiple of N) and
+draws the global batch's crop and flip, keeping its rows' draws; the
+BatchNorms share the global batch's statistics; each rank's loss is its
+numerator over the global (all-reduced) weight sum, so the ranks'
+gradients sum to the global gradient; the gradients are synced after
+the backward and before the norm and the update, by one flat
+``all_reduce`` (f32) or the int8 block-scaled sync (``int8`` /
+``int8_rs``, JAX ``trainer.py:466-493``).  Every rank ends a step with
+the same parameters.  Only the coordinator writes checkpoints; the
+others wait at the end of the fit until they are on disk.
+
 Not ported yet (ROADMAP.md): the device-resident and epoch-scan feeds,
 and the mid-round fit state and its resume.
 """
@@ -34,7 +46,7 @@ and the mid-round fit state and its resume.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +55,10 @@ from ..config import TrainConfig
 from ..data.augment import apply_view
 from ..data.core import Dataset
 from ..data.pipeline import iterate_batches
+from ..device import resolve_device
+from ..models.resnet import set_sync_group
 from ..models.weights import to_flax_variables
+from ..parallel import mesh as mesh_lib
 from ..utils.logging import get_logger
 from . import checkpoint as ckpt_lib
 from .evaluation import accumulate_metrics, batch_metric_counts
@@ -64,12 +79,17 @@ class FitResult:
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                           sample_weights: torch.Tensor) -> torch.Tensor:
+                           sample_weights: torch.Tensor,
+                           total_weight: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """torch ``CrossEntropyLoss(weight=w, reduction='mean')`` semantics,
-    ``sum(w·ce) / sum(w)``, in float32; padding rows carry weight 0."""
+    ``sum(w·ce) / sum(w)``, in float32; padding rows carry weight 0.
+    ``total_weight`` replaces ``sum(w)`` (a rank's share of a global
+    batch divides by the global sum)."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ce = -logp.gather(1, labels.to(torch.int64)[:, None])[:, 0]
-    denom = torch.clamp(torch.sum(sample_weights), min=1e-12)
+    denom = torch.clamp(torch.sum(sample_weights) if total_weight is None
+                        else total_weight, min=1e-12)
     return torch.sum(ce * sample_weights) / denom
 
 
@@ -81,15 +101,33 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 
 class Trainer:
-    """Trains one model under one TrainConfig on one device."""
+    """Trains one model under one TrainConfig on one rank of ``mesh``
+    (default: a single rank on ``device``)."""
 
     def __init__(self, model: torch.nn.Module, train_cfg: TrainConfig,
-                 num_classes: int, device: torch.device):
+                 num_classes: int, device=None,
+                 mesh: Optional[mesh_lib.Mesh] = None):
+        if mesh is None:
+            mesh = mesh_lib.single_rank(device)
+        elif device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
         self.model = model
         self.cfg = train_cfg
         self.num_classes = num_classes
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device
         self.logger = get_logger()
+        # "f32" or "int8" (one rank: always "f32"), and the int8 wire
+        # form; the learning probe (``experiment/driver.py``) may
+        # degrade int8 to f32.
+        requested = train_cfg.grad_allreduce or "f32"
+        self.grad_sync = mesh_lib.resolve_grad_allreduce(requested, mesh)
+        self.grad_sync_form = (mesh_lib.resolve_int8_wire(requested, mesh)
+                               if self.grad_sync == "int8" else None)
+        self.grad_allreduce_degraded = False
+        if mesh.world_size > 1:
+            set_sync_group(model, mesh)
         self.lr_at = make_lr_schedule(train_cfg.scheduler,
                                       train_cfg.optimizer.lr)
         freeze = bool(getattr(model, "freeze_feature", False))
@@ -110,10 +148,22 @@ class Trainer:
 
     # -- setup -----------------------------------------------------------
 
+    def padded_batch_size(self, batch_size: int) -> int:
+        """Round up so the batch splits evenly over the ranks; padding
+        rows are masked out of every reduction."""
+        return mesh_lib.padded_batch_size(batch_size, self.mesh)
+
+    def local_rows(self, batch_size: int) -> Optional[slice]:
+        """This rank's rows of a global batch (None on one rank)."""
+        if self.mesh.world_size == 1:
+            return None
+        return mesh_lib.process_local_rows(self.mesh, batch_size)
+
     def eval_batch_size(self, dataset: Optional[Dataset] = None) -> int:
-        """The test loader's batch on the CPU; on the card at least 512
-        rows for images up to 64 px and 256 above (128 when the row shape
-        is unknown), as the JAX package raises it on accelerators.
+        """The global evaluation batch: the test loader's batch on the
+        CPU; on the card at least 512 rows a rank for images up to 64 px
+        and 256 above (128 when the row shape is unknown), as the JAX
+        package raises it on accelerators; a multiple of the rank count.
         Evaluation is per example under eval-mode BN, so the batch size
         changes throughput only."""
         bs = self.cfg.loader_te.batch_size
@@ -122,8 +172,8 @@ class Trainer:
             shape = getattr(dataset, "image_shape", None)
             if shape:
                 floor = 512 if shape[0] <= 64 else 256
-            bs = max(bs, floor)
-        return bs
+            bs = max(bs, floor * self.mesh.world_size)
+        return self.padded_batch_size(bs)
 
     def class_weights(self, labels: np.ndarray) -> np.ndarray:
         """Imbalanced-training class weights: observed classes get
@@ -156,15 +206,19 @@ class Trainer:
 
     def train_step(self, batch: Dict[str, torch.Tensor], lr: float,
                    class_weights: torch.Tensor, view,
-                   generator: Optional[torch.Generator]):
-        """One step on a device batch; returns the loss and the global
+                   generator: Optional[torch.Generator],
+                   rows: Optional[Tuple[int, slice]] = None):
+        """One step on a device batch (with ``rows = (global_b, slice)``:
+        this rank's slice of a global batch); returns this rank's share
+        of the loss (the shares sum to the global loss) and the global
         gradient norm as device scalars (no host sync)."""
         x = apply_view(batch["image"], view, generator=generator,
-                       train=True)
+                       train=True, rows=rows)
         labels = batch["label"].to(torch.int64)
         weights = class_weights[labels] * batch["mask"]
+        total = self.mesh.all_reduce(torch.sum(weights))
         logits = self.model(x)
-        loss = weighted_cross_entropy(logits, labels, weights)
+        loss = weighted_cross_entropy(logits, labels, weights, total)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         # A frozen encoder's parameters get a zero gradient, as JAX's
         # stop_gradient gives them: weight decay and momentum still move
@@ -173,9 +227,21 @@ class Trainer:
                  else g if g.stride() == p.stride()
                  else torch.empty_like(p).copy_(g)
                  for g, p in zip(grads, self.params)]
+        grads = self.sync_grads(grads)
         gnorm = global_norm(grads)
         self.optimizer.step(self.params, grads, lr)
         return loss.detach(), gnorm
+
+    def sync_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The summed gradients of every rank, the same on each: one
+        flat ``all_reduce`` (f32), or the int8 block-scaled sync in the
+        resolved wire form.  One rank: ``grads`` as they are."""
+        if self.grad_sync == "int8":
+            sync = (mesh_lib.int8_reduce_scatter
+                    if self.grad_sync_form == "reduce_scatter"
+                    else mesh_lib.int8_allreduce)
+            return sync(grads, self.mesh)
+        return mesh_lib.allreduce_f32(grads, self.mesh)
 
     def evaluate(self, dataset: Dataset, idxs: np.ndarray
                  ) -> Dict[str, np.ndarray]:
@@ -190,7 +256,7 @@ class Trainer:
                     dataset, idxs, bs,
                     num_threads=self.cfg.loader_te.num_workers,
                     prefetch=self.cfg.loader_te.prefetch,
-                    s2d=self.host_s2d):
+                    s2d=self.host_s2d, rows=self.local_rows(bs)):
                 dev = self.to_device(batch)
                 x = apply_view(dev["image"], dataset.view, train=False)
                 yield batch_metric_counts(self.model(x), dev["label"],
@@ -198,7 +264,7 @@ class Trainer:
 
         try:
             with torch.inference_mode():
-                return accumulate_metrics(counts())
+                return accumulate_metrics(counts(), self.mesh.all_reduce)
         finally:
             self.model.train(was_training)
 
@@ -224,7 +290,9 @@ class Trainer:
         class_weights = torch.from_numpy(
             self.class_weights(labels)).to(self.device)
         self.reinit_optimizer()
-        bs = self.cfg.loader_tr.batch_size
+        bs = self.padded_batch_size(self.cfg.loader_tr.batch_size)
+        rows = self.local_rows(bs)
+        writer = weight_paths if self.mesh.is_coordinator else None
         best_perf, best_epoch, es_count = 0.0, 0, 0
         best_variables = None
         best_dirty = False
@@ -242,17 +310,20 @@ class Trainer:
                     train_set, labeled_idxs, bs, shuffle=True, rng=rng,
                     num_threads=self.cfg.loader_tr.num_workers,
                     prefetch=self.cfg.loader_tr.prefetch,
-                    s2d=self.host_s2d and batch_hook is None):
+                    s2d=self.host_s2d and batch_hook is None, rows=rows):
                 dev_batch = self.to_device(batch)
-                loss, gnorm = self.train_step(dev_batch, lr, class_weights,
-                                              train_set.view, generator)
+                loss, gnorm = self.train_step(
+                    dev_batch, lr, class_weights, train_set.view, generator,
+                    None if rows is None else (bs, rows))
                 losses.append(loss)
                 gnorms.append(gnorm)
                 if batch_hook is not None:
                     batch_hook(epoch, dev_batch)
-            record = {"epoch": epoch, "lr": lr,
-                      "train_loss": (torch.stack(losses).mean()
-                                     if losses else 0.0),
+            train_loss = 0.0
+            if losses:
+                # Each rank holds its share of every step's loss.
+                train_loss = self.mesh.all_reduce(torch.stack(losses)).mean()
+            record = {"epoch": epoch, "lr": lr, "train_loss": train_loss,
                       "grad_norm": (torch.stack(gnorms).mean()
                                     if gnorms else 0.0)}
             if use_es:
@@ -275,13 +346,13 @@ class Trainer:
                     best_dirty = True
                 else:
                     es_count += 1
-                if weight_paths and epoch % CURRENT_CKPT_EVERY == 0:
+                if writer and epoch % CURRENT_CKPT_EVERY == 0:
                     if best_dirty:
-                        self._publish(weight_paths, best_variables,
+                        self._publish(writer, best_variables,
                                       round_idx, best_epoch)
                         best_dirty = False
                     ckpt_lib.save_variables(
-                        weight_paths["current_ckpt"],
+                        writer["current_ckpt"],
                         to_flax_variables(self.model.state_dict()))
             history.append(record)
             if use_es and es_count > es_patience:
@@ -292,13 +363,16 @@ class Trainer:
             best_epoch = epochs_run
             best_variables = self.variables()
             best_dirty = True
-        if best_dirty and weight_paths:
-            self._publish(weight_paths, best_variables, round_idx,
-                          best_epoch)
-        if weight_paths:
+        if best_dirty and writer:
+            self._publish(writer, best_variables, round_idx, best_epoch)
+        if writer:
             ckpt_lib.save_variables(
-                weight_paths["current_ckpt"],
+                writer["current_ckpt"],
                 to_flax_variables(self.model.state_dict()))
+        if weight_paths:
+            # The other ranks read best_ckpt next: not before it is on
+            # disk.
+            self.mesh.barrier()
         self.logger.info(
             f"Sanity Check: Best ckpt occurs on epoch {best_epoch}")
         for rec in history:

@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py [--detail PATH]
 
-Drives the port's serving, training and acquisition paths, and the s2d
-stem through all three (``active_learning_tpu_torch``), on the card,
+Drives the port's serving, training and acquisition paths, the s2d
+stem through all three, and data-parallel training on two ranks
+(``active_learning_tpu_torch``), on the card,
 through the entry points a user calls, and fails (non-zero exit) if any
 phase fails:
 
@@ -124,6 +125,33 @@ phase fails:
     scores bit-equal to the offline step over host-s2d rows; (4) a timed
     B=128 train step, s2d against the default stem, and the stem alone;
     (5) one float32 s2d train step on the card against the CPU.
+17. Kernel J (``ops/int8_sync``, CUDA: block absmax, quantize,
+    dequantizing sum, reduce-scatter re-quantization) against its plain
+    version at N = 2, 4, 8 thread ranks of one process, each running the
+    trainer's ``int8_allreduce`` / ``int8_reduce_scatter`` over a mesh
+    whose collectives meet in memory, both wire forms, over SSLResNet50's 161 gradient leaves and edge leaves of
+    1, 255, 257 and 256·N + 3 elements, a NaN on one rank and an inf on
+    another: bit for bit, both blocks NaN on every rank.  Each function
+    timed at N = 2 beside its plain version (the torch composite: no
+    single PyTorch call computes them) and its bytes bound.
+18. Two ranks in two processes sharing cuda:0 over gloo, every collective
+    staged through pinned host memory (NCCL refuses two ranks on one
+    card): each calls ``run_experiment`` with its mesh (SSLResNet50, 1000
+    classes, 224 px, bf16, ``default/imagenet``, global batch 128,
+    MarginSampler, one round: a query of 512, then 2 epochs of 4 steps)
+    under the f32, int8 and int8_rs gradient syncs.  The learning probe's
+    delta, the launch counters of kernels A-D and J (zeroed just before
+    each run, read just after), the step time per sync and the host time
+    inside its collectives (the median and range of the steps after the
+    first, which pays first-use costs), the first synced
+    gradients bit-equal on both ranks, and the int8 sync's largest error
+    over its bound (``N·scale/2``, ``+scale2/2`` for int8_rs) against the
+    f32 all-reduce of the same step: at most 1.
+19. One NCCL rank on the card (``init_process_group("nccl",
+    world_size=1)``): the mesh's all_reduce, all_gather, all_to_all (int8
+    payloads) and broadcast through NCCL, and ``int8_allreduce`` /
+    ``int8_reduce_scatter`` called at N = 1 equal to their plain
+    versions.
 
 Prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -3121,6 +3149,457 @@ def time_s2d_step(dev, reps: int = 10):
     return out
 
 
+# -- phase 17: kernel J against its plain version -----------------------------
+
+INT8_NS = (2, 4, 8)
+INT8_FORMS = ("allgather", "reduce_scatter")
+
+
+def _int8_ranks(dev, shapes, n, seed):
+    """n ranks' gradient leaves from a seed, magnitudes 1e-3 to 10; a NaN
+    on rank 0 (leaf 1) and an inf on rank n-1 (leaf 2)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    per = [[torch.randn(s, device=dev, generator=g) * 10.0 ** (i % 5 - 3)
+            for i, s in enumerate(shapes)] for _ in range(n)]
+    per[0][1].view(-1)[7] = float("nan")
+    per[n - 1][2].view(-1)[-1] = float("inf")
+    return per
+
+
+def _int8_bounds(n_el, nb, t):
+    """Bytes each device function must move for ``n_el`` elements in
+    ``nb`` blocks with ``t`` payloads: each input read once, each output
+    written once."""
+    return {"block_absmax": _bound(4 * n_el + 4 * nb, 0),
+            "quantize": _bound(4 * n_el + 4 * nb + n_el + 4 * nb, 0),
+            "dequant_sum": _bound(t * n_el + 8 * nb + 4 * n_el, 0)}
+
+
+def check_int8_sync(dev, detail):
+    """Kernel J's four device functions against their plain versions at
+    N = 2, 4, 8 thread ranks of one process, each running the sync the
+    trainer runs (``int8_allreduce`` / ``int8_reduce_scatter`` over a
+    ``ThreadMesh``, whose collectives meet in memory), both wire forms,
+    over SSLResNet50's 161 gradient leaves and edge leaves of 1, 255,
+    257 and 256·N + 3 elements: bit for bit on every rank, the NaN's and
+    the inf's blocks NaN everywhere.  Then each function timed at N = 2
+    on the packed SSLResNet50 buffer beside its plain version (the torch
+    composite abs/amax/div/round/clamp/to(int8): no single PyTorch call
+    computes any of them) and its bytes bound."""
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.ops import int8_sync as j
+    from active_learning_tpu_torch.parallel import mesh as pm
+
+    model = get_network("imagenet", "SSLResNet50", device=dev)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    err, t0 = 0.0, time.perf_counter()
+    for n in INT8_NS:
+        leaves = shapes + [(1,), (255,), (257,), (256 * n + 3,)]
+        per = _int8_ranks(dev, leaves, n, seed=n)
+        host = [[t.cpu() for t in ts] for ts in per]
+        for form in INT8_FORMS:
+            fn = (pm.int8_allreduce if form == "allgather"
+                  else pm.int8_reduce_scatter)
+            got = pm.run_thread_ranks(
+                lambda m, fn=fn: fn(per[m.rank], m), n, dev, timeout_s=300)
+            want = pm.run_thread_ranks(
+                lambda m, fn=fn: fn(host[m.rank], m), n, "cpu",
+                timeout_s=600)
+            torch.cuda.synchronize()
+            bad = 0
+            for r in range(n):
+                for a, b in zip(got[r], want[r]):
+                    a = a.cpu()
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        bad += 1
+                        err = max(err, float(torch.nan_to_num(
+                            (a - b).abs(), nan=float("inf")).max()))
+                if not (torch.isnan(got[r][1]).all()
+                        and torch.isnan(got[r][2]).all()):
+                    raise AssertionError(f"kernel J at N={n} {form}: a "
+                                         "non-finite block came out finite")
+            detail.append({"kernel": "int8_sync", "n": n, "form": form,
+                           "leaves": len(leaves), "leaves_differing": bad})
+            if bad:
+                raise AssertionError(f"kernel J at N={n} {form}: {bad} "
+                                     "leaves differ from the plain version")
+            del got, want
+        del per, host
+        torch.cuda.empty_cache()
+    log(f"kernel J bit-equal to its plain version at N = {INT8_NS}, both "
+        f"wire forms, {len(shapes)} + 4 leaves "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # Times at N = 2 on the packed SSLResNet50 gradients.
+    g = torch.Generator(device=dev).manual_seed(1)
+    grads = [torch.randn(s, device=dev, generator=g) * 1e-3 for s in shapes]
+    ms, plain, bounds = {}, {}, {}
+    for form in INT8_FORMS:
+        lay = pm.sync_layout(grads, 2, form)
+        flat = lay.pack(grads, dev)
+        slots = lay.slot_of_block(dev)
+        nb = lay.num_blocks
+        absmax = j.block_absmax(flat)
+        q, scale = j.quantize(flat, absmax, slots)
+        key = "" if form == "allgather" else "rs_"
+        ms[key + "block_absmax"] = cuda_ms(lambda: j.block_absmax(flat))
+        plain[key + "block_absmax"] = cuda_ms(
+            lambda: j.block_absmax_reference(flat), reps=10)
+        ms[key + "quantize"] = cuda_ms(lambda: j.quantize(flat, absmax,
+                                                          slots))
+        plain[key + "quantize"] = cuda_ms(
+            lambda: j.quantize_reference(flat, absmax, slots), reps=10)
+        b = _int8_bounds(lay.total, nb, 2)
+        bounds[key + "block_absmax"] = b["block_absmax"]["bound_ms"]
+        bounds[key + "quantize"] = b["quantize"]["bound_ms"] + (
+            4 * nb / HBM_BYTES_PER_S * 1e3 if slots is not None else 0)
+        if form == "allgather":
+            two = torch.stack([q, q])
+            ms["dequant_sum"] = cuda_ms(lambda: j.dequant_sum(two, scale,
+                                                              absmax))
+            plain["dequant_sum"] = cuda_ms(
+                lambda: j.dequant_sum_reference(two, scale, absmax), reps=10)
+            bounds["dequant_sum"] = b["dequant_sum"]["bound_ms"]
+            del two
+        else:
+            per = lay.per_dest
+            recv = q.view(2, -1).contiguous()
+            my = scale[:per].contiguous()
+            ms["rs_sum_requantize"] = cuda_ms(
+                lambda: j.sum_requantize(recv, my))
+            plain["rs_sum_requantize"] = cuda_ms(
+                lambda: j.sum_requantize_reference(recv, my), reps=10)
+            shard = per * 256
+            bounds["rs_sum_requantize"] = _bound(
+                2 * shard + 4 * per + shard + 4 * per, 0)["bound_ms"]
+            q2, s2 = j.sum_requantize(recv, my)
+            g2 = torch.cat([q2, q2]).view(1, -1)
+            s2 = torch.cat([s2, s2])
+            ms["rs_dequant"] = cuda_ms(
+                lambda: j.dequant_sum(g2, s2, absmax, slots))
+            plain["rs_dequant"] = cuda_ms(
+                lambda: j.dequant_sum_reference(g2, s2, absmax, slots),
+                reps=10)
+            bounds["rs_dequant"] = _bound(
+                lay.total + 12 * nb + 4 * lay.total, 0)["bound_ms"]
+            del recv, q2, g2
+        del flat, q, scale, absmax
+    del grads
+    torch.cuda.empty_cache()
+    ag = ("block_absmax", "quantize", "dequant_sum")
+    times = {"ms": sum(ms[k] for k in ag),
+             "plain_ms": sum(plain[k] for k in ag),
+             "bound_ms": sum(bounds[k] for k in ag), "bound_by": "bytes",
+             "library_ms": None, "ms_by_function": ms,
+             "plain_ms_by_function": plain,
+             "bound_ms_by_function": bounds,
+             "timed": "one all-gather sync at N=2 over SSLResNet50's "
+                      f"{sum(int(np.prod(s)) for s in shapes):,} gradient "
+                      "elements (collective excluded); plain = the torch "
+                      "composite on the card"}
+    log(f"kernel J times (ms, N=2): {json.dumps(ms)}; plain "
+        f"{json.dumps(plain)}; bounds {json.dumps(bounds)}")
+    return err, times
+
+
+# -- phase 18: N ranks on the one card -----------------------------------------
+
+DP_MODES = ("f32", "int8", "int8_rs")
+# Rows labeled by the one round's query: 4 steps of 128 an epoch.
+DP_BUDGET = 512
+
+
+def _hold_sync(trainer, grads, synced):
+    """The step's synced gradients against the f32 all-reduce of the same
+    local gradients, and across the ranks (all-gathered, compared bit for
+    bit).  Plain torch ops and the f32 sync only: no kernel J launch."""
+    from active_learning_tpu_torch.parallel import mesh as pm
+
+    mesh = trainer.mesh
+    cpu = torch.device("cpu")
+    flat = torch.cat([t.reshape(-1) for t in synced])
+    every = mesh.all_gather(flat.to(cpu))
+    equal = all(torch.equal(every[0].view(torch.int32),
+                            every[r].view(torch.int32))
+                for r in range(1, mesh.world_size))
+    out = {"bit_equal_across_ranks": equal, "err_over_bound": None}
+    if trainer.grad_sync != "int8":
+        return out
+    form = trainer.grad_sync_form
+    lay = pm.sync_layout(grads, mesh.world_size, form)
+    f32 = lay.pack(pm.allreduce_f32(grads, mesh), mesh.device).view(-1, 256)
+    got = lay.pack(synced, mesh.device).view(-1, 256)
+    absmax = mesh.all_reduce(
+        lay.pack(grads, mesh.device).view(-1, 256).abs().amax(1), "max")
+    bound = mesh.world_size * absmax / 127 / 2
+    if form == "reduce_scatter":
+        bound = bound + got.abs().amax(1) / 127 * 1.01 / 2
+    # 1e-4 of the bound and 1e-6 of the value for the float32 roundings
+    # of the scale, the division and the products.
+    ratio = (got - f32).abs() / (bound[:, None] * (1 + 1e-4)
+                                 + 1e-6 * f32.abs() + 1e-30)
+    out["err_over_bound"] = float(ratio.max())
+    out["max_abs_err"] = float((got - f32).abs().max())
+    return out
+
+
+def _dp_rank(rank, world, root, n_train, n_test, device="cuda:0",
+             model_name="SSLResNet50", num_classes=1000, hw=224):
+    """Phase 18, one rank (a spawned process): ``run_experiment`` with this
+    rank's mesh under each gradient sync, recording the probe, the step
+    times, the launch counters and the first SSLResNet50 sync's checks;
+    writes ``dp_rank{rank}.json`` under ``root``."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.config import ExperimentConfig
+    from active_learning_tpu_torch.experiment import driver
+    from active_learning_tpu_torch.parallel import mesh as pm
+    from active_learning_tpu_torch.train.trainer import Trainer
+
+    mesh = pm.make_mesh(-1, device, backend="gloo")
+    data = _facsimile_224(n_train, n_test, num_classes, hw=hw)
+
+    def sync_device():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    # Host time inside the mesh's collectives during a timed step, the
+    # device synchronized first: a staged collective's wait for the
+    # kernels before it is not counted as the collective's.
+    coll = {"on": False, "s": 0.0, "n": 0, "hold_s": 0.0}
+
+    def timing(fn):
+        def wrapped(self, *a, **k):
+            if not coll["on"]:
+                return fn(self, *a, **k)
+            sync_device()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            coll["s"] += time.perf_counter() - t0
+            coll["n"] += 1
+            return out
+        return wrapped
+
+    for name in ("all_reduce", "all_gather", "all_to_all"):
+        setattr(pm.Mesh, name, timing(getattr(pm.Mesh, name)))
+
+    results = {"mesh": mesh.describe()}
+    probe, step, sync = (driver.run_grad_allreduce_probe,
+                         Trainer.train_step, Trainer.sync_grads)
+    for mode in DP_MODES:
+        rec = {"probe": None, "step_s": [], "coll_s": [], "coll_n": [],
+               "sync": None}
+
+        def probing(m, requested, rec=rec):
+            rec["probe"] = probe(m, requested)
+            return rec["probe"]
+
+        def timed(self, *a, rec=rec, **k):
+            main = len(self.params) > 10        # not the probe's model
+            sync_device()
+            coll.update(on=main, s=0.0, n=0, hold_s=0.0)
+            t0 = time.perf_counter()
+            out = step(self, *a, **k)
+            sync_device()
+            coll["on"] = False
+            if main:
+                rec["step_s"].append(time.perf_counter() - t0
+                                     - coll["hold_s"])
+                rec["coll_s"].append(coll["s"])
+                rec["coll_n"].append(coll["n"])
+            return out
+
+        def checked(self, grads, rec=rec):
+            out = sync(self, grads)
+            if rec["sync"] is None and len(grads) > 10:
+                # The checks' own collectives and time stay out of the
+                # step's figures.
+                on, coll["on"] = coll["on"], False
+                t0 = time.perf_counter()
+                rec["sync"] = _hold_sync(self, grads, out)
+                rec["grad_elements"] = sum(g.numel() for g in grads)
+                coll["hold_s"] = time.perf_counter() - t0
+                coll["on"] = on
+            return out
+
+        cfg = ExperimentConfig(
+            dataset="imagenet", model=model_name,
+            strategy="MarginSampler", rounds=1, init_pool_size=0,
+            round_budget=DP_BUDGET, n_epoch=2, early_stop_patience=2,
+            exp_hash=f"dp_{mode}", device=device, grad_allreduce=mode,
+            log_dir=os.path.join(root, "logs"),
+            ckpt_path=os.path.join(root, "ckpt"))
+        driver.run_grad_allreduce_probe = probing
+        Trainer.train_step, Trainer.sync_grads = timed, checked
+        try:
+            ops.reset_kernel_launches()
+            t0 = time.perf_counter()
+            strategy = driver.run_experiment(cfg, data=data, mesh=mesh)
+            sync_device()
+            rec["wall_s"] = time.perf_counter() - t0
+            rec["launches"] = ops.kernel_launches()
+        finally:
+            driver.run_grad_allreduce_probe = probe
+            Trainer.train_step, Trainer.sync_grads = step, sync
+        rec.update(grad_sync=strategy.trainer.grad_sync,
+                   form=strategy.trainer.grad_sync_form,
+                   labeled=int(strategy.pool.labeled.sum()),
+                   test_acc=strategy.last_test_acc,
+                   dtype=str(strategy.model.dtype))
+        results[mode] = rec
+        del strategy
+        torch.cuda.empty_cache()
+    with open(os.path.join(root, f"dp_rank{rank}.json"), "w") as fh:
+        json.dump(results, fh, default=str)
+
+
+def run_dp_experiment(root: str, n_train: int = 1024, n_test: int = 128,
+                      device: str = "cuda:0", model_name="SSLResNet50",
+                      num_classes: int = 1000, hw: int = 224):
+    """18: two ranks in two processes, both on cuda:0, joined over gloo
+    with every collective staged through pinned host memory (NCCL
+    refuses two ranks on one card; this is the only form a one-card
+    machine can run the N-rank path in).  Each rank calls
+    ``run_experiment`` with its mesh: SSLResNet50, 1000 classes, 224 px,
+    bf16, ``default/imagenet`` (global batch 128, 64 a rank),
+    MarginSampler, one round (a query of 512 first, then 2 epochs of 4
+    steps), under the f32, int8 and int8_rs syncs; each step's time and
+    the host time inside its collectives, summed up over the steps after
+    the first (which pays first-use costs) as a median and a range.  Checks: the probe passes,
+    kernel J launches under int8 and int8_rs (never under f32), kernels
+    A-D under all three, the first SSLResNet50 sync is bit-equal on both
+    ranks and within the int8 bound of the f32 all-reduce."""
+    from active_learning_tpu_torch.parallel import mesh as pm
+
+    log(f"phase 18: 2 ranks sharing {device} over gloo, every collective "
+        "host-staged through pinned memory (NCCL refuses two ranks on one "
+        "card)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pm.launch_ranks(_dp_rank, 2, (root, n_train, n_test, device,
+                                  model_name, num_classes, hw),
+                    backend="gloo", join_timeout_s=900)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"dp_rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    j_names = ("int8_absmax", "int8_quantize", "int8_dequant_sum",
+               "int8_sum_requantize")
+    out = {"wall_s": wall, "mesh": [r["mesh"] for r in ranks], "modes": {}}
+    launches = None
+    for mode in DP_MODES:
+        recs = [r[mode] for r in ranks]
+        lsum = {k: sum(rc["launches"][k] for rc in recs)
+                for k in recs[0]["launches"]}
+        launches = lsum if launches is None else {
+            k: launches[k] + v for k, v in lsum.items()}
+        steps = recs[0]["step_s"]
+        warm = 1e3 * np.asarray(steps[1:])
+        form = {"f32": "f32", "int8": "allgather",
+                "int8_rs": "reduce_scatter"}[mode]
+        m = {"launches": lsum, "probe": recs[0]["probe"],
+             "step_ms": [1e3 * s for s in steps],
+             "step_ms_median": float(np.median(warm)),
+             "step_ms_range": [float(warm.min()), float(warm.max())],
+             "collective_ms_median": 1e3 * float(np.median(
+                 recs[0]["coll_s"][1:])),
+             "collectives_per_step": int(np.median(recs[0]["coll_n"])),
+             "wire_model_bytes": pm.wire_model_bytes(
+                 form, 2, recs[0]["grad_elements"]),
+             "sync": [rc["sync"] for rc in recs],
+             "grad_sync": recs[0]["grad_sync"], "form": recs[0]["form"],
+             "wall_s": recs[0]["wall_s"], "test_acc": recs[0]["test_acc"]}
+        out["modes"][mode] = m
+        j_count = sum(lsum[k] for k in j_names)
+        a_d = ("prob_stats", "bn_act", "bn_train_stats",
+               "bn_train_bwd_reduce", "bn_train_dx", "fused_sgd")
+        log(f"dp {mode}: sync {m['grad_sync']} {m['form'] or ''}, probe "
+            f"{m['probe']}, {len(steps)} train steps, median of the "
+            f"last {len(warm)} {m['step_ms_median']:.1f} ms (range "
+            f"{m['step_ms_range']}; all {m['step_ms']}), of it "
+            f"{m['collective_ms_median']:.1f} ms in "
+            f"{m['collectives_per_step']} collectives (wire model "
+            f"{m['wire_model_bytes']:,} B a rank), kernel J "
+            f"launches {j_count} {json.dumps({k: lsum[k] for k in j_names})}"
+            f", A-D {json.dumps({k: lsum[k] for k in a_d})}, first sync "
+            f"{m['sync']}, wall {m['wall_s']:.1f} s, test acc "
+            f"{m['test_acc']}")
+        want = "torch.bfloat16" if device.startswith("cuda") \
+            else "torch.float32"
+        if len(steps) != 8 or any(rc["labeled"] != DP_BUDGET
+                                  or rc["dtype"] != want for rc in recs):
+            raise AssertionError(f"dp {mode}: {recs}")
+        if not all(s["bit_equal_across_ranks"] for s in m["sync"]):
+            raise AssertionError(f"dp {mode}: synced gradients differ "
+                                 "across ranks")
+        for k in a_d:
+            if lsum[k] < 1:
+                raise AssertionError(f"dp {mode} never launched {k}")
+        if mode == "f32":
+            if j_count or m["grad_sync"] != "f32":
+                raise AssertionError(f"dp f32 launched kernel J {j_count}")
+            continue
+        ok, delta = m["probe"]
+        if not ok or m["grad_sync"] != "int8":
+            raise AssertionError(f"dp {mode}: the probe failed ({delta})")
+        need = j_names[:3] + (("int8_sum_requantize",)
+                              if mode == "int8_rs" else ())
+        if any(lsum[k] < 1 for k in need):
+            raise AssertionError(f"dp {mode}: kernel J did not launch")
+        worst = max(s["err_over_bound"] for s in m["sync"])
+        if not worst <= 1.0:
+            raise AssertionError(f"dp {mode}: int8 error {worst} of its "
+                                 "bound")
+    out["launches"] = launches
+    log(f"phase 18 done in {wall:.1f} s")
+    return out
+
+
+# -- phase 19: one NCCL rank on the card ---------------------------------------
+
+def check_nccl_world1(dev):
+    """19: ``init_process_group("nccl", world_size=1)``; the mesh's
+    all_reduce (sum, max), all_gather and all_to_all with int8 payloads
+    and broadcast run through NCCL; ``int8_allreduce`` and
+    ``int8_reduce_scatter`` called directly at N = 1 equal their plain
+    versions."""
+    import torch.distributed as dist
+
+    from active_learning_tpu_torch.parallel import mesh as pm
+
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{pm._free_port()}", world_size=1, rank=0)
+    try:
+        mesh = pm.make_mesh(-1, "cuda")
+        q = (torch.arange(4096, device=dev) % 255 - 127).to(torch.int8)
+        x = torch.randn(10000, device=dev)
+        checks = {
+            "all_gather_int8": torch.equal(mesh.all_gather(q)[0], q),
+            "all_to_all_int8": torch.equal(mesh.all_to_all(q.clone()), q),
+            "all_reduce_sum": torch.equal(mesh.all_reduce(x.clone()), x),
+            "all_reduce_max": torch.equal(mesh.all_reduce(x.clone(), "max"),
+                                          x),
+            "broadcast": torch.equal(mesh.broadcast(q.clone()), q)}
+        leaves = [torch.randn(s, device=dev) * 1e-2
+                  for s in ((64, 3, 7, 7), (64,), (257,), (2048, 1000))]
+        for form, fn in (("allgather", pm.int8_allreduce),
+                         ("reduce_scatter", pm.int8_reduce_scatter)):
+            got = fn(leaves, mesh)
+            want = fn([t.cpu() for t in leaves], pm.single_rank("cpu"))
+            checks[f"int8_{form}_n1"] = all(
+                torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        torch.cuda.synchronize()
+        desc = mesh.describe()
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 19: {desc}: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"NCCL world-1 checks failed: {checks}")
+    return {"mesh": desc, "checks": checks}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", default=None,
@@ -3273,6 +3752,18 @@ def main() -> int:
     s2d["f32_step"] = check_train_step_f32_against_cpu(
         stem="s2d", num_classes=16, hw=64, b=16)
 
+    # 17. Kernel J against its plain version.
+    t0 = time.perf_counter()
+    err_j, times_j = check_int8_sync(dev, detail)
+    log(f"kernel J checks: {time.perf_counter() - t0:.1f} s")
+
+    # 18. Two ranks on the one card (gloo, host-staged).
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        dp = run_dp_experiment(tmp)
+
+    # 19. One NCCL rank on the card.
+    nccl = check_nccl_world1(dev)
+
     def total(runs):
         keys = next(iter(runs)).keys()
         return {k: sum(r[k] for r in runs) for k in keys}
@@ -3287,13 +3778,16 @@ def main() -> int:
              "vaal_query": vaal["query_launches"],
              "cli_samplers": cli_smp_launches,
              "s2d_experiment": s2d["experiment"]["launches"],
-             "s2d_serve": s2d["serve"]["launches"]}
+             "s2d_serve": s2d["serve"]["launches"],
+             "dp_experiment": dp["launches"]}
 
     def count(*names):
         by = {p: sum(v[n] for n in names) for p, v in paths.items()}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
     c_names = ("bn_train_stats", "bn_train_bwd_reduce", "bn_train_dx")
+    j_names = ("int8_absmax", "int8_quantize", "int8_dequant_sum",
+               "int8_sum_requantize")
     e_names = ("kcenter_fold_select", "kcenter_fold_draw", "kcenter_min_fold")
     f_names = ("boundary_radii", "head_pair_norms")
     kernels = [
@@ -3345,6 +3839,13 @@ def main() -> int:
          "source": "active_learning_tpu_torch/csrc/stem_dw.cu",
          "replaces": "active_learning_tpu/ops/backward.py:104",
          **count("stem_dw"), "max_abs_err": err_i, **times_i},
+        {"name": "int8_sync", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/int8_sync.cu",
+         "replaces": "active_learning_tpu/parallel/mesh.py:472",
+         **count(*j_names), "max_abs_err": err_j,
+         "launches_by_function": {n: sum(v[n] for v in paths.values())
+                                  for n in j_names},
+         **times_j},
     ]
     early = [p for p in paths if not p.startswith("s2d_")]
     if any(paths[p]["stem_dw"] for p in early):
@@ -3366,7 +3867,7 @@ def main() -> int:
                                        "cli": cli_geo},
                        "samplers": {"balancing": balancing, "vaal": vaal,
                                     "cli": cli_smp},
-                       "s2d": s2d,
+                       "s2d": s2d, "dp": dp, "nccl": nccl,
                        "checks": detail}, fh, indent=1, default=str)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

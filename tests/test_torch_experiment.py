@@ -146,7 +146,7 @@ def test_without_a_card_the_cli_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume_training"], ["--grad_allreduce", "int8"],
+    ["--resume_training"], ["--round_pipeline", "speculative"],
     ["--dataset", "cifar10"], ["--imbalance_type", "exp"],
     ["--arg_pool", "ssp_finetuning"], ["--pool_sharding", "row"]])
 def test_flags_not_ported_exit_2_naming_the_roadmap(flags, capsys):

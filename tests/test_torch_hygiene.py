@@ -5,8 +5,8 @@ scikit-learn (the card's machine has none) or the JAX package.
 Two checks: every port module imports in a fresh interpreter where those
 names are blocked in ``sys.modules``; and an AST scan of every import
 statement in the package and in ``chip_smoke.py``.  The modules of the
-training, acquisition, last-samplers and s2d slices are also named one
-by one.
+training, acquisition, last-samplers, s2d and data-parallel slices are
+also named one by one.
 """
 
 from __future__ import annotations
@@ -69,7 +69,8 @@ def _imports(path: str):
 
 
 @pytest.mark.parametrize("path", _port_files()
-                         + [os.path.join(REPO, "chip_smoke.py")],
+                         + [os.path.join(REPO, "chip_smoke.py"),
+                            os.path.join(REPO, "step_ab.py")],
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_forbidden_import_statement(path):
     bad = [name for name in _imports(path)
@@ -107,9 +108,12 @@ SAMPLERS_SLICE = (
 # The s2d stem: kernel I's wrapper.
 S2D_SLICE = ("ops/stem_conv",)
 
+# Data parallelism: the mesh and kernel J's wrapper.
+PARALLEL_SLICE = ("parallel/__init__", "parallel/mesh", "ops/int8_sync")
+
 
 @pytest.mark.parametrize("module", TRAINING_SLICE + ACQUISITION_SLICE
-                         + SAMPLERS_SLICE + S2D_SLICE)
+                         + SAMPLERS_SLICE + S2D_SLICE + PARALLEL_SLICE)
 def test_training_slice_module_is_checked(module):
     path = os.path.join(PKG, *module.split("/")) + ".py"
     assert path in _port_files()

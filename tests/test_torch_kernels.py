@@ -18,9 +18,11 @@ from active_learning_tpu_torch.ops import bn_act as ba
 from active_learning_tpu_torch.ops import bn_train as bt
 from active_learning_tpu_torch.ops import boundary_radii as br
 from active_learning_tpu_torch.ops import fused_sgd as fs
+from active_learning_tpu_torch.ops import int8_sync as j
 from active_learning_tpu_torch.ops import kcenter as kc
 from active_learning_tpu_torch.ops import prob_stats as ps
 from active_learning_tpu_torch.ops import stem_conv as sc
+from active_learning_tpu_torch.parallel import mesh as mesh_lib
 from active_learning_tpu_torch.utils import threefry
 
 pytestmark = pytest.mark.cuda
@@ -553,3 +555,58 @@ def test_stem_dw_wrapper_raises_rather_than_falls_back(cuda_device):
         sc.stem_dw(torch.zeros(2, 8, 8, 3, device=cuda_device), g)
     with pytest.raises(ValueError, match="share device"):
         sc.stem_dw(x, g.cpu())
+
+
+# -- kernel J: the int8 gradient sync ------------------------------------------
+
+def _int8_ranks(dev, n, seed):
+    """n ranks' leaves: lengths on and off the 256 grid, magnitudes 1e-3
+    to 10, a NaN on rank 0 and an inf on rank n-1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [(64, 3, 7, 7), (64,), (300,), (1,), (255,), (257,),
+              (256 * n + 3,), (512, 256)]
+    per = [[torch.randn(s, device=dev, generator=g) * 10.0 ** (i % 5 - 3)
+            for i, s in enumerate(shapes)] for _ in range(n)]
+    per[0][2].view(-1)[7] = float("nan")
+    per[n - 1][1].view(-1)[-1] = float("inf")
+    return per
+
+
+@pytest.mark.parametrize("form", ["allgather", "reduce_scatter"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_int8_sync_kernels_match_plain(cuda_device, n, form):
+    """The four device functions against their plain versions, n thread
+    ranks each running the sync the trainer runs: bit for bit on every
+    rank (NaN bits included), the NaN's and the inf's blocks NaN
+    everywhere."""
+    fn = (mesh_lib.int8_allreduce if form == "allgather"
+          else mesh_lib.int8_reduce_scatter)
+    per = _int8_ranks(cuda_device, n, n)
+    host = [[t.cpu() for t in ts] for ts in per]
+    before = j.quantize_launches
+    got = mesh_lib.run_thread_ranks(lambda m: fn(per[m.rank], m), n,
+                                    cuda_device, timeout_s=120)
+    want = mesh_lib.run_thread_ranks(lambda m: fn(host[m.rank], m), n,
+                                     "cpu", timeout_s=120)
+    torch.cuda.synchronize()
+    assert j.quantize_launches == before + n
+    for r in range(n):
+        for a, b in zip(got[r], want[r]):
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32))
+        assert torch.isnan(got[r][2][:256]).all()
+        assert torch.isnan(got[r][1]).all()
+
+
+def test_int8_sync_wrappers_raise_rather_than_fall_back(cuda_device):
+    x = torch.zeros(600, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple"):
+        j.block_absmax(x[:300])
+    with pytest.raises(ValueError, match="aligned"):
+        j.block_absmax(x[1:257])
+    with pytest.raises(ValueError):
+        j.quantize(x[:256], torch.zeros(1))            # absmax on the CPU
+    q = torch.zeros(2, 512, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        j.dequant_sum(q, torch.zeros(2, device=cuda_device),
+                      torch.zeros(3, device=cuda_device))
