@@ -11,8 +11,8 @@
 //   int8_block_absmax    absmax[b] = max |x| over block b; +inf for a
 //                        block holding a NaN or an inf (a cross-rank max
 //                        carries +inf, not always NaN);
-//   int8_quantize        scale = max(absmax, floor) / 127, q =
-//                        clamp(rint(x / scale), -127, 127), an IEEE
+//   int8_quantize        scale = max(absmax, floor) * float32(1/127),
+//                        q = clamp(rint(x / scale), -127, 127), an IEEE
 //                        division (__fdiv_rn) and round-half-to-even:
 //                        jnp.round of a true division; a non-finite
 //                        block writes zeros.  Block b is written at slot
@@ -38,7 +38,12 @@
 // max by warp shuffles; 8 warps a CTA, grid-stride over the blocks.
 // No float operation is contracted or reassociated: the products are
 // __fmul_rn, the divisions __fdiv_rn, so the plain PyTorch version in
-// ops/int8_sync.py gives the same bits.
+// ops/int8_sync.py gives the same bits.  The scale is a product with
+// the float32 reciprocal of 127, not a division by 127: the JAX
+// trainer runs its sync inside a jitted step, where XLA's algebraic
+// simplifier rewrites `max(absmax, 1e-30) / 127.0` into that multiply
+// (both scales, in the reduce-scatter form), and the port computes
+// what the reference computes as users run it.
 //
 // C interface for ctypes; each entry point returns cudaGetLastError().
 
@@ -52,6 +57,7 @@ constexpr int kPerLane = 8;
 constexpr int kWarps = 8;
 constexpr int kMaxGrid = 132 * 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kInv127 = 1.0f / 127.0f;  // float32(1/127), as XLA folds it
 
 __device__ __forceinline__ float quiet_nan() {
   return __int_as_float(0x7fc00000);  // torch's and numpy's NaN bits
@@ -105,7 +111,7 @@ __device__ __forceinline__ float warp_absmax(const float v[kPerLane]) {
 }
 
 __device__ __forceinline__ float block_scale(float absmax, float floor) {
-  return __fdiv_rn(fmaxf(absmax, floor), 127.0f);
+  return __fmul_rn(fmaxf(absmax, floor), kInv127);
 }
 
 // q = clamp(rint(v / scale), -127, 127); zeros when the block is not

@@ -14,12 +14,22 @@ on its own: ``d = g + wd·p`` (``d = g`` when ``wd == 0``), ``t' = d +
 no momentum ``p' = p + (−lr)·d``.  Scalars are rounded to float32 first,
 as JAX's weakly typed Python scalars are.  Bound: device-memory bytes
 (see the note in the source).
+
+The kernel reads a table of leaves (``leaf_split`` cuts each into a
+scalar head, a body of 16-byte vectors and a scalar tail), built on the
+first call and kept while every buffer stays where it is: a train step
+hands the same parameter and momentum tensors and, from the caching
+allocator, usually the same gradient addresses, step after step.  On
+such a call the wrapper compares the facts the checks read with the
+ones they passed, a few whole-list operations instead of a loop over the
+leaves (see ``_hit``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+import operator
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,9 +39,6 @@ from . import _build
 # Launches of the CUDA kernel since the process started (or since a
 # caller reset it).
 launches = 0
-
-CHUNK = 4096
-
 
 def _check(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
            traces: Optional[Sequence[torch.Tensor]]) -> None:
@@ -94,31 +101,115 @@ def fused_sgd_reference(params: Sequence[torch.Tensor],
         p.copy_(p + neg_lr * d)
 
 
-_tables: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, int]] = {}
+def leaf_split(p_ptr: int, g_ptr: int, t_ptr: int, numel: int,
+               t_size: int = 4) -> Tuple[int, int, int]:
+    """(head, vectors, tail) of one leaf: ``head`` scalar elements until
+    the param, grad and trace (``t_size`` bytes an element; ``t_ptr`` 0
+    for none) all reach a 16-byte boundary (8 for a bf16 trace) at the
+    same element, then ``vectors`` runs of 4 elements, then ``tail``
+    scalar ones.  Buffers that never align together make the whole leaf
+    its head."""
+    if numel <= 0:
+        return 0, 0, 0
+    head = (-p_ptr % 16) // 4
+    ok = p_ptr % 4 == 0 and (g_ptr + 4 * head) % 16 == 0
+    if t_ptr:
+        ok = ok and (t_ptr + t_size * head) % (4 * t_size) == 0
+    if not ok or head >= numel:
+        return numel, 0, 0
+    vectors = (numel - head) // 4
+    return head, vectors, numel - head - 4 * vectors
 
 
-def _device_tables(params, grads, traces) -> Tuple[torch.Tensor,
-                                                   torch.Tensor, int]:
-    """The (leaves, chunks) tables on the device, rebuilt only when a
-    buffer moved: the parameters and momentum are updated in place, and
-    the caching allocator tends to hand the gradients the same addresses
-    step after step."""
-    rows = [(p.data_ptr(), g.data_ptr(),
-             traces[i].data_ptr() if traces is not None else 0, p.numel())
-            for i, (p, g) in enumerate(zip(params, grads))]
-    key = (params[0].device, tuple(rows))
-    hit = _tables.get(key)
-    if hit is not None:
-        return hit
-    chunks = [(leaf, c) for leaf, (_, _, _, n) in enumerate(rows)
-              for c in range(-(-n // CHUNK))]
+_ROW = 8   # csrc kRow: p, g, t, first unit, vectors, head, numel, 0
+
+
+def leaf_table(rows: Sequence[Tuple[int, int, int, int]],
+               t_size: int = 4) -> Tuple[np.ndarray, int]:
+    """The kernel's table [L, 8] int64 of (p, g, t, numel) rows and the
+    total of its work units (a leaf's vectors, then its head and tail
+    elements)."""
+    table = np.zeros((len(rows), _ROW), dtype=np.int64)
+    units = 0
+    for i, (p, g, t, n) in enumerate(rows):
+        head, vectors, tail = leaf_split(p, g, t, n, t_size)
+        table[i, :7] = (p, g, t, units, vectors, head, n)
+        units += vectors + head + tail
+    return table, units
+
+
+class _Plan(NamedTuple):
+    """The device table of one set of buffers, and every fact about them
+    that ``_check`` read: the table stays right, and the checks stay
+    passed, for buffers with the same facts."""
+    p_ptrs: Tuple[int, ...]
+    g_ptrs: Tuple[int, ...]
+    t_ptrs: Optional[Tuple[int, ...]]
+    metas: Tuple            # (shape, dtype) of each param
+    t_metas: Optional[Tuple]
+    strides: Tuple
+    device: int
+    table: torch.Tensor
+    units: int
+    trace_bf16: bool
+
+
+_plan_cache: Optional[_Plan] = None
+_ptr = torch.Tensor.data_ptr
+_stride = torch.Tensor.stride
+_get_device = torch.Tensor.get_device
+_meta = operator.attrgetter("shape", "dtype")
+
+
+def _hit(pl: _Plan, params, grads, traces) -> bool:
+    """Whether ``pl`` describes these buffers: params, grads and traces
+    at the table's addresses, on its device, with the shapes, dtypes and
+    strides ``_check`` passed (the grads are new tensors each step, the
+    params and traces the same ones updated in place; either way every
+    fact ``_check`` reads is compared, with no per-leaf Python loop)."""
+    if len(params) != len(pl.p_ptrs) or len(grads) != len(params):
+        return False
+    if (traces is None) != (pl.t_ptrs is None):
+        return False
+    metas, strides = pl.metas, pl.strides
+    ts = () if traces is None else traces
+    return (tuple(map(_ptr, params)) == pl.p_ptrs
+            and tuple(map(_ptr, grads)) == pl.g_ptrs
+            and (traces is None or tuple(map(_ptr, traces)) == pl.t_ptrs)
+            and tuple(map(_meta, params)) == metas
+            and tuple(map(_meta, grads)) == metas
+            and (traces is None or tuple(map(_meta, traces)) == pl.t_metas)
+            and tuple(map(_stride, params)) == strides
+            and tuple(map(_stride, grads)) == strides
+            and (traces is None or tuple(map(_stride, traces)) == strides)
+            and set(map(_get_device, params)).union(
+                map(_get_device, grads), map(_get_device, ts))
+            == {pl.device})
+
+
+def _plan(params, grads, traces) -> _Plan:
+    """The device table for these buffers: the cached one when
+    ``_hit``, else built after the full checks."""
+    global _plan_cache
+    pl = _plan_cache
+    if pl is not None and _hit(pl, params, grads, traces):
+        return pl
+    _check(params, grads, traces)
     dev = params[0].device
-    leaves_t = torch.tensor(np.asarray(rows, dtype=np.int64), device=dev)
-    chunks_t = torch.tensor(np.asarray(chunks, dtype=np.int32).reshape(-1, 2),
-                            device=dev)
-    _tables.clear()
-    _tables[key] = (leaves_t, chunks_t, len(chunks))
-    return _tables[key]
+    if dev.type != "cuda":
+        raise ValueError(f"fused_sgd: unsupported device {dev}")
+    trace_bf16 = traces is not None and traces[0].dtype == torch.bfloat16
+    p_ptrs, g_ptrs = tuple(map(_ptr, params)), tuple(map(_ptr, grads))
+    t_ptrs = tuple(map(_ptr, traces)) if traces is not None else None
+    rows = [(p, g, t_ptrs[i] if t_ptrs else 0, v.numel())
+            for i, (p, g, v) in enumerate(zip(p_ptrs, g_ptrs, params))]
+    table, units = leaf_table(rows, 2 if trace_bf16 else 4)
+    _plan_cache = _Plan(
+        p_ptrs, g_ptrs, t_ptrs, tuple(map(_meta, params)),
+        tuple(map(_meta, traces)) if traces is not None else None,
+        tuple(map(_stride, params)), dev.index,
+        torch.from_numpy(table).to(dev), units, trace_bf16)
+    return _plan_cache
 
 
 @torch.no_grad()
@@ -132,25 +223,23 @@ def fused_sgd_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     if (traces is None) != (not momentum):
         raise ValueError("fused_sgd: traces must be given exactly when "
                          "momentum is non-zero")
-    _check(params, grads, traces)
     if not params:
+        _check(params, grads, traces)
         return
-    dev = params[0].device
-    if dev.type == "cpu":
+    if params[0].device.type == "cpu":
+        _check(params, grads, traces)
         fused_sgd_reference(params, grads, traces, lr, momentum,
                             weight_decay)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"fused_sgd: unsupported device {dev}")
-    leaves_t, chunks_t, nchunks = _device_tables(params, grads, traces)
+    pl = _plan(params, grads, traces)
     neg_lr, mu, wd = _scalars(lr, momentum, weight_decay)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(pl.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(
-            leaves_t.data_ptr(), chunks_t.data_ptr(), nchunks, CHUNK,
-            int(traces is not None and traces[0].dtype == torch.bfloat16),
-            int(bool(momentum)), int(bool(weight_decay)), float(neg_lr),
-            float(mu), float(wd), stream)
+            pl.table.data_ptr(), len(pl.p_ptrs), pl.units,
+            int(pl.trace_bf16), int(bool(momentum)),
+            int(bool(weight_decay)), float(neg_lr), float(mu), float(wd),
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_sgd kernel launch failed: CUDA error "
                            f"{err}")
@@ -165,10 +254,10 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("fused_sgd").fused_sgd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn

@@ -13,9 +13,13 @@ them together around ``torch.distributed``:
     and neither promises to carry a NaN through a max; ``+inf`` survives
     it, and the JAX rule only asks whether a block is finite.)
   * ``quantize(x, absmax, slot_of_block) -> (q, scale)``: ``scale =
-    max(absmax, 1e-30) / 127`` and ``q = clip(round(x / scale), ±127)``
-    as int8, an IEEE division and round-half-to-even as ``jnp.round``
-    of a true division gives; a non-finite block writes zeros.  Block
+    max(absmax, 1e-30) · float32(1/127)`` and ``q = clip(round(x /
+    scale), ±127)`` as int8, an IEEE division and round-half-to-even as
+    ``jnp.round`` of a true division gives; a non-finite block writes
+    zeros.  The JAX function writes ``/ 127``; its trainer runs it
+    jitted, and XLA's algebraic simplifier folds that division into a
+    multiply by the float32 reciprocal, so the port multiplies too (and
+    so for the reduce-scatter owner's ``scale2``).  Block
     ``b`` lands at slot ``slot_of_block[b]`` (identity when None): the
     reduce-scatter form's send order ``[dest][leaf][blocks]``.
   * ``dequant_sum(q, scale, absmax, slot_of_block) -> out``: for each
@@ -49,6 +53,8 @@ BLOCK = 256
 # max(absmax, SCALE_FLOOR): an all-zero block gets a finite scale.
 SCALE_FLOOR = float(np.float32(1e-30))
 QMAX = 127.0
+# float32(1/127): the reciprocal XLA folds ``/ 127`` into.
+INV_QMAX = np.float32(1.0) / np.float32(QMAX)
 
 # Launches of each device function since the process started (or since
 # a caller reset them).  Thread ranks (``parallel.mesh.run_thread_ranks``)
@@ -79,7 +85,8 @@ def block_absmax_reference(x: torch.Tensor) -> torch.Tensor:
 
 def _quantize_blocks(blocks: torch.Tensor, absmax: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(absmax, min=SCALE_FLOOR) / QMAX
+    scale = torch.clamp(absmax, min=SCALE_FLOOR) * torch.tensor(
+        INV_QMAX, device=absmax.device)
     q = torch.clamp(torch.round(blocks / scale[:, None]), -QMAX, QMAX)
     q = torch.where(torch.isfinite(absmax)[:, None], q, 0.0)
     return q.to(torch.int8), scale

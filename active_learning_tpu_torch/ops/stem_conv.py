@@ -18,16 +18,17 @@ The public functions take the JAX package's layout: ``x`` is NHWC
 shape; the kernel writes it with channels-last strides (memory order
 ``[F, kh, kw, C]``), the layout of the model's channels-last parameter.
 
-Bound: float32 operations on the CUDA cores (see the source note in
-``csrc/stem_dw.cu``).  The plain version computes in ``promote(dtype,
-float32)`` — float64 for a float64 input, which the CPU tests use to
-hold the formula to 1e-10 of the JAX package's.
+Bound: device-memory bytes on the bf16 path, which runs on the tensor
+cores (``wgmma``); the f32 path stays on the CUDA cores (see the source
+note in ``csrc/stem_dw.cu``).  The plain version computes in
+``promote(dtype, float32)`` — float64 for a float64 input, which the CPU
+tests use to hold the formula to 1e-10 of the JAX package's.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,10 +42,26 @@ S2D_PADDING = ((2, 1), (2, 1))
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _CHANNELS = 12          # the kernel's input channels: 2x2 blocks of RGB
-_TILE = (4, 28)         # output rows x columns per tile (csrc kTI, kTJ)
-_MAX_BLOCKS = 512
-_MAX_TAPS = 8           # kh, kw <= 8 and F <= 64 keep shared memory < 48 KB
-_MAX_FILTERS = 64
+_MAX_TAPS = 8           # kh, kw <= 8
+_MAX_FILTERS = 64       # one wgmma N tile; the f32 path's 48 KB of smem
+# The f32 path (CUDA cores): tiles of 4 x 28 output positions, at most
+# 512 runs.
+_F32_TILE = (4, 28)
+_F32_MAX_RUNS = 512
+# The bf16 path (tensor cores): tiles of 2 output rows x 8·steps columns
+# (16-position wgmma steps; the kernel is compiled for these step
+# counts), cut into about _TC_RUNS runs, one persistent block each.  132
+# is the H100's SM count, but as a constant: the runs, and so the
+# summation order, never follow the card the kernel runs on.
+_TC_STEPS = (1, 2, 4, 7, 12, 14)
+_TC_RUNS = 132
+_TC_ROW_TILES = 3       # 64-row tiles of the kh*kw*12 rows per block
+_TC_STAGES = 4          # the copy ring's depth (csrc kStages)
+_SMEM_LIMIT = 232448    # bytes of shared memory a Hopper block can use
+# Units of last place per 16-position wgmma step (csrc note: 16 products
+# and the accumulator in one or two aligned groups, each n-addend group
+# truncating n-1 and normalizing once).
+_TC_UNITS_PER_STEP = 18
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -56,22 +73,87 @@ def _pads(padding: Sequence[Sequence[int]]) -> Tuple[int, int, int, int]:
     return int(p0), int(p1), int(q0), int(q1)
 
 
-def partition(b: int, ho: int, wo: int) -> Tuple[int, int]:
-    """(tiles per block, blocks) of the kernel's fixed tile partition: a
-    function of the output shape alone, so the summation order (and the
-    result) never depends on the card's SM count."""
-    ti, tj = _TILE
-    tiles = b * -(-ho // ti) * -(-wo // tj)
-    per = max(1, -(-tiles // _MAX_BLOCKS))
-    return per, max(1, -(-tiles // per))
+class Partition(NamedTuple):
+    """The kernel's fixed split of the output positions: tiles of
+    ``tile_rows x tile_cols`` positions of one image, in the order
+    (image, row tile, column tile); run ``k`` (one block) takes tiles
+    ``[k·per, min((k+1)·per, tiles))`` in order."""
+    tile_rows: int
+    tile_cols: int
+    tiles: int
+    per: int
+    nblk: int
 
 
-def chain_length(b: int, ho: int, wo: int) -> int:
-    """The longest sequential chain of float32 additions behind one
-    output of the kernel: a block's run of tile positions, then the fold
-    of the partials."""
-    per, nblk = partition(b, ho, wo)
-    return per * _TILE[0] * _TILE[1] + nblk
+def _r16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def _tc_smem(tile_cols: int, kh: int, kw: int) -> int:
+    """Shared memory of the bf16 path (csrc ``TcSmem``): four g
+    tiles (128 bytes a position) and raw x windows (TMA boxes of kh+1
+    rows x 256 elements, one pixel more than the window: a box starts on
+    an even pixel), two paired windows, the stages' mbarriers and 1 KB to
+    align the swizzled g tiles."""
+    xj = tile_cols + kw - 1
+    boxes = -(-(xj + 1) * _CHANNELS // 256)
+    return (1024 + _TC_STAGES * (2 * tile_cols * 128
+                                 + boxes * (kh + 1) * 512)
+            + 2 * _r16((kh + 1) * xj * _CHANNELS * 4) + 8 * _TC_STAGES)
+
+
+def partition(b: int, ho: int, wo: int, dtype: torch.dtype = torch.float32,
+              kh: int = 4, kw: int = 4) -> Partition:
+    """The kernel's tile partition for an input of ``dtype``: a function
+    of the shape alone, so the summation order (and the result) never
+    depends on the card's SM count."""
+    if dtype == torch.bfloat16:
+        # The fewest steps that cover a row, else the most that fit.
+        tr, runs = 2, _TC_RUNS
+        fits = [n for n in _TC_STEPS
+                if _tc_smem(8 * n, kh, kw) <= _SMEM_LIMIT]
+        cover = [n for n in fits if 8 * n >= wo]
+        tc = 8 * (min(cover) if cover else max(fits))
+    else:
+        (tr, tc), runs = _F32_TILE, _F32_MAX_RUNS
+    tiles = b * -(-ho // tr) * -(-wo // tc)
+    per = max(1, -(-tiles // runs))
+    return Partition(tr, tc, tiles, per, max(1, -(-tiles // per)))
+
+
+def chain_length(b: int, ho: int, wo: int,
+                 dtype: torch.dtype = torch.float32, kh: int = 4,
+                 kw: int = 4) -> int:
+    """L_k: the units of ``error_unit(dtype)`` per Σ|x||g| behind one
+    output of the kernel, |kernel − exact| ≤ L_k·u·Σ|x||g|.  f32 (CUDA
+    cores, one round to nearest per addition): a block's run of
+    positions, then the fold of the partials.  bf16 (tensor cores): 18
+    units per 16-position step of a run (see the source note), then the
+    fold."""
+    part = partition(b, ho, wo, dtype, kh, kw)
+    if dtype == torch.bfloat16:
+        steps = part.per * part.tile_cols // 8
+        return _TC_UNITS_PER_STEP * steps + part.nblk
+    return part.per * part.tile_rows * part.tile_cols + part.nblk
+
+
+def error_unit(dtype: torch.dtype = torch.float32) -> float:
+    """The unit of ``chain_length``: 2⁻²⁴ (float32 round to nearest) on
+    the f32 path, 2⁻²³ (a truncated last place) on the tensor cores."""
+    return 2.0 ** -23 if dtype == torch.bfloat16 else 2.0 ** -24
+
+
+# ‖kernel − exact‖ / ‖exact‖ over the whole dW, the checks' second limit.
+# The worst case L_k·u·Σ|x||g| is above a typical |dW| at the fit width
+# (zero-mean inputs: |dW| ~ Σ|x||g| / √M), so it cannot tell a kernel
+# that skips positions from a right one.  Skipping or misreading one
+# 16-position step of such inputs moves dW by about √(16/M) of its norm:
+# 3.2e-3 at the fit width (M = 1,605,632), more at every smaller shape.
+# A right kernel read 1.4e-5 there on an H100 (bf16; chip_smoke.py
+# phase 15), 1.6e-6 or less at every other shape; a copy that skipped
+# one tile a run (1.8% of the positions) read 0.13 and passed the
+# worst-case bounds.
+REL_NORM_LIMIT = 1e-4
 
 
 def _check(x: torch.Tensor, g: torch.Tensor, kh: int, kw: int,
@@ -139,31 +221,56 @@ def stem_dw(x: torch.Tensor, g: torch.Tensor, kh: int = 4, kw: int = 4,
     dw = torch.empty(f, kh, kw, c, dtype=torch.float32, device=x.device)
     if b * ho * wo == 0:
         return dw.zero_().permute(0, 3, 1, 2)
-    per, nblk = partition(b, ho, wo)
-    partial = torch.empty(nblk, f * kh * kw * c, dtype=torch.float32,
+    part = partition(b, ho, wo, x.dtype, kh, kw)
+    partial = torch.empty(part.nblk, f * kh * kw * c, dtype=torch.float32,
                           device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(x.data_ptr(), g.data_ptr(), int(x.dtype == torch.bfloat16),
-                    b, h, w, ho, wo, f, kh, kw, pads[0], pads[2], per, nblk,
-                    partial.data_ptr(), dw.data_ptr(), stream)
+        if x.dtype == torch.bfloat16:
+            # TMA's tensor maps take rows of a multiple of 16 bytes (an
+            # even width of x) and g's box is one 64-filter swizzle row:
+            # x and g are padded with zeros to those, 16-byte aligned.
+            xt = _aligned(F.pad(x, (0, 0, 0, w % 2)) if w % 2 else x)
+            gt = _aligned(F.pad(g, (0, _MAX_FILTERS - f))
+                          if f < _MAX_FILTERS else g)
+            mgroups = -(-kh * kw * c // (64 * _TC_ROW_TILES))
+            err = _fn("stem_dw_bf16")(
+                xt.data_ptr(), gt.data_ptr(), b, h, xt.shape[2], ho, wo,
+                gt.shape[3], f, kh, kw, pads[0], pads[2], part.tile_cols,
+                part.tiles, part.per, part.nblk, mgroups,
+                partial.data_ptr(), dw.data_ptr(), stream)
+        else:
+            err = _fn("stem_dw_f32")(
+                x.data_ptr(), g.data_ptr(), b, h, w, ho, wo, f, kh, kw,
+                pads[0], pads[2], part.per, part.nblk, partial.data_ptr(),
+                dw.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"stem_dw kernel launch failed: CUDA error {err}")
     launches += 1
     return dw.permute(0, 3, 1, 2)
 
 
+def _aligned(v: torch.Tensor) -> torch.Tensor:
+    """``v`` (contiguous), copied when its data does not start on the 16
+    bytes the bf16 path's copies need (a view with a storage offset)."""
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "stem_dw_f32": [_ptr, _ptr] + [_i32] * 12 + [_ptr, _ptr, _ptr],
+    "stem_dw_bf16": [_ptr, _ptr] + [_i32] * 16 + [_ptr, _ptr, _ptr],
+}
 _fns = {}
 
 
-def _fn():
-    """The C entry point of ``csrc/stem_dw.cu``, built and bound at first
+def _fn(name: str):
+    """A C entry point of ``csrc/stem_dw.cu``, built and bound at first
     use."""
-    fn = _fns.get("stem_dw")
+    fn = _fns.get(name)
     if fn is None:
-        fn = _build.load("stem_dw").stem_dw
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr] + [i32] * 13 + [ptr, ptr, ptr]
+        fn = getattr(_build.load("stem_dw"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _fns["stem_dw"] = fn
+        _fns[name] = fn
     return fn

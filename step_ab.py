@@ -1,7 +1,7 @@
 """Time the one-rank B=128 train step of two checkouts on one card, in
 turns A, B, B, A.
 
-    python3 step_ab.py DIR_A DIR_B
+    python3 step_ab.py DIR_A DIR_B [--s2d]
 
 Each turn is a fresh process that imports the checkout's own
 ``chip_smoke.py`` and package (from ``DIR``) and runs its path (a),
@@ -10,7 +10,18 @@ timed window and a profiled window of train steps.  Prints one JSON line
 per turn (``step_ms``, the profiled wall and device-busy ms a step) and,
 last, a summary with each checkout's two turns.  Compare two versions
 only within one such run: the card's clocks and power limit differ
-between machines.
+between machines.  With ``--s2d`` each turn also runs the checkout's
+``time_s2d_step`` (phase 16.4: a B=128 step with the s2d stem and with
+the default one, profiled) and reports each stem's device ms a step and
+the stem alone (forward + weight gradient).  Every turn also times kernel D
+through its wrapper, ``fused_sgd_update`` over SSLResNet50's 161 leaves
+at f32 state: the host side (``perf_counter`` around each of 200 calls,
+the device not waited for; the median, three times) and the device time
+of 20 calls from the profiler's kernel events, before the train step
+(after a long profiled window a session has lost events).  Only a
+complete reading counts (20 times one call's kernel events; a session
+that lost some is taken again, at most three); a turn fails without
+one, or when the time is under its bytes bound (20 bytes a parameter).
 """
 
 from __future__ import annotations
@@ -21,19 +32,77 @@ import subprocess
 import sys
 
 _TURN = """
-import json, sys
+import json, sys, time
 sys.path.insert(0, {dir!r})
+import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, schedule
 import chip_smoke as cs
+from active_learning_tpu_torch.ops import fused_sgd as fs
+# Kernel D first: after a long profiled window a session has lost events.
+p, g, t = cs._sgd_leaves(torch.device("cuda"), torch.float32, 4)
+def sgd_host_us():
+    for _ in range(3):
+        fs.fused_sgd_update(p, g, t, 0.1, 0.9, 1e-4)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        fs.fused_sgd_update(p, g, t, 0.1, 0.9, 1e-4)
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(ts)) * 1e6
+res = {{"sgd_host_us": [sgd_host_us() for _ in range(3)]}}
+def events(n):
+    # As chip_smoke._kernel_events: one discarded warm-up step (a
+    # session's first launches can go unrecorded), the card waited for
+    # at every step.
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        for _ in range(n + 1):
+            fs.fused_sgd_update(p, g, t, 0.1, 0.9, 1e-4)
+            torch.cuda.synchronize()
+            prof.step()
+    return {{e.key: (e.count, e.self_device_time_total)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}}
+# As chip_smoke.profiled_device_ms: only a complete reading counts.
+lost = []
+for _ in range(3):
+    one, ev = events(1), events(20)
+    counts = {{k: c for k, (c, _) in ev.items()}}
+    if ev and counts == {{k: 20 * c for k, (c, _) in one.items()}}:
+        break
+    lost.append((one, counts))
+else:
+    raise AssertionError(f"kernel D: the profiler lost events in every "
+                         f"session: {{lost}}")
+res["sgd_profiler_sessions_discarded"] = len(lost)
+res["sgd_device_ms"] = sum(us for _, us in ev.values()) / 1e3 / 20
+bound_ms = sum(x.numel() for x in p) * 20 / cs.HBM_BYTES_PER_S * 1e3
+if res["sgd_device_ms"] < bound_ms:
+    raise AssertionError(f"kernel D: {{res['sgd_device_ms']}} ms a call, "
+                         f"under its bytes bound {{bound_ms}} ms")
+del p, g, t
+torch.cuda.empty_cache()
 out = cs.run_fit_path(torch.device("cuda"))
-print("TURN " + json.dumps({{k: out[k] for k in (
-    "step_ms", "profiled_wall_ms_per_step", "device_ms_per_step",
-    "device_busy_share")}}))
+res.update({{k: out[k] for k in ("step_ms", "profiled_wall_ms_per_step",
+                                 "device_ms_per_step",
+                                 "device_busy_share")}})
+if {s2d!r}:
+    s2d = cs.time_s2d_step(torch.device("cuda"), reps=5)
+    for stem in ("default", "s2d"):
+        res[stem + "_step_device_ms"] = s2d["profiled"][stem]["device_ms"]
+        res[stem + "_stem_fwd_dw_ms"] = s2d["stem_fwd_dw_ms"][stem]
+print("TURN " + json.dumps(res))
 """
 
 
-def turn(path: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _TURN.format(dir=path)],
+def turn(path: str, s2d: bool = False) -> dict:
+    proc = subprocess.run([sys.executable, "-c",
+                           _TURN.format(dir=path, s2d=s2d)],
                           cwd=path, capture_output=True, text=True,
                           timeout=600)
     if proc.returncode != 0:
@@ -44,20 +113,24 @@ def turn(path: str) -> dict:
 
 
 def main(argv) -> int:
+    s2d = "--s2d" in argv
+    argv = [a for a in argv if a != "--s2d"]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     dirs = {"A": os.path.abspath(argv[0]), "B": os.path.abspath(argv[1])}
     runs = {"A": [], "B": []}
     for label in "ABBA":
-        out = turn(dirs[label])
+        out = turn(dirs[label], s2d)
         runs[label].append(out)
         print(json.dumps({"turn": label, "dir": dirs[label], **out}),
               flush=True)
     print(json.dumps({label: {"dir": dirs[label],
                               "step_ms": [r["step_ms"] for r in rs],
-                              "device_ms_per_step": [
-                                  r["device_ms_per_step"] for r in rs]}
+                              **{k: [r[k] for r in rs] for k in rs[0]
+                                 if k.endswith("device_ms")
+                                 or k in ("device_ms_per_step",
+                                          "sgd_host_us", "sgd_device_ms")}}
                       for label, rs in runs.items()}))
     return 0
 

@@ -19,17 +19,17 @@ any non-finite block, and so does the port (a non-finite absmax becomes
 ``+inf`` before the max); ``test_a_nan_on_one_rank_poisons_its_block``
 holds the port to the rule and to JAX everywhere else.
 
-The reference is the JAX function as written, ``scale = max(absmax,
-1e-30) / 127`` a true division, as op-by-op execution computes it.  A
-jitted step gives XLA's algebraic simplifier the chance to fold the
-division by the constant 127 into a multiply by ``float32(1/127)``,
-which moves ~4.5% of the scales by one ulp (and, where an element sits
-on a rounding edge, its quantum).  The port divides, as the function
-says; the JAX side of the bit-equality tests is compiled with that pass
-off.  ``test_default_compiled_jax_differs_only_by_the_folded_scale``
-holds the port to JAX compiled as its trainer compiles it: a numpy model
-of the sync reproduces each side bit for bit with its own scale, and the
-two differ only where that scale moved.
+The reference is the JAX function as its trainer runs it: inside a
+jitted step, where XLA's algebraic simplifier folds ``scale = max(absmax,
+1e-30) / 127`` into a multiply by ``float32(1/127)``, which moves ~4.5%
+of the scales by one ulp from the division as written (and, where an
+element sits on a rounding edge, its quantum).  The port multiplies by
+the same reciprocal, and the JAX side of the bit-equality tests is
+compiled with XLA's default passes.
+``test_jax_without_the_fold_differs_only_by_the_divided_scale`` holds
+the port to JAX compiled with that pass off: a numpy model of the sync
+reproduces each side bit for bit with its own scale, and the two differ
+only where that scale moved.
 """
 
 from __future__ import annotations
@@ -82,10 +82,11 @@ def _leaves(n: int, seed: int, nan_everywhere: bool = True):
     return out
 
 
-def _jax_sync(leaves, n: int, form: str, algsimp: bool = False):
+def _jax_sync(leaves, n: int, form: str, algsimp: bool = True):
     """Each rank's synced leaves, ``[n, *shape]`` per leaf, as numpy
     (``algsimp``: compiled with XLA's algebraic simplifier, as the JAX
-    package's jitted trainer runs it)."""
+    package's jitted trainer runs it; off, the division by 127 stays a
+    division, as op-by-op execution computes it)."""
     mesh = jax_mesh.make_mesh(n)
     xs = [jnp.asarray(x).astype(jnp.bfloat16) if i == 7 else jnp.asarray(x)
           for i, x in enumerate(leaves)]
@@ -100,9 +101,8 @@ def _jax_sync(leaves, n: int, form: str, algsimp: bool = False):
                           in_specs=tuple(P("data") for _ in xs),
                           out_specs=tuple(P("data") for _ in xs),
                           check_rep=False))
-    # The function as written: XLA's algebraic simplifier would fold the
-    # division by 127 into a multiply by float32(1/127) (see the module
-    # docstring); op-by-op execution computes the same as this, slower.
+    # With the simplifier off, the division by 127 stays a division (see
+    # the module docstring).
     compiled = f.lower(*xs).compile(compiler_options=(
         None if algsimp else {"xla_disable_hlo_passes": "algsimp"}))
     return [np.asarray(jnp.asarray(o).astype(jnp.float32))
@@ -258,28 +258,29 @@ def _edge_block(n: int, rng):
 
 
 @pytest.mark.parametrize("form", FORMS)
-def test_default_compiled_jax_differs_only_by_the_folded_scale(form):
-    """JAX compiled as its trainer compiles it folds ``/127`` into ``*
-    float32(1/127)``; the port divides.  A numpy model of the sync with
-    either scale is each side bit for bit, so nothing else differs.  The
-    two differ only in blocks whose scale (reduce-scatter: or second
-    scale) moved, each by one ulp: there by the ulp's product and one
-    quantum per rank whose ``x / scale`` sits on a rounding edge
-    (reduce-scatter: and one quantum of the second scale)."""
+def test_jax_without_the_fold_differs_only_by_the_divided_scale(form):
+    """JAX compiled with the algebraic simplifier off keeps ``/127`` a
+    division; the port multiplies by ``float32(1/127)``, as the default
+    compile folds it.  A numpy model of the sync with either scale is
+    each side bit for bit, so nothing else differs.  The two differ only
+    in blocks whose scale (reduce-scatter: or second scale) moved, each
+    by one ulp: there by the ulp's product and one quantum per rank
+    whose ``x / scale`` sits on a rounding edge (reduce-scatter: and one
+    quantum of the second scale)."""
     n = 4
     rng = np.random.default_rng(31)
     leaves = [(rng.normal(size=(n, 5000)) * 0.1).astype(np.float32),
               (rng.normal(size=(n, 129, 257)) * 3.0).astype(np.float32),
               np.tile(_edge_block(n, rng), (1, n))]
     leaves[0][:, 17] = np.nan
-    ref = _jax_sync(leaves, n, form, algsimp=True)
+    ref = _jax_sync(leaves, n, form, algsimp=False)
     got = _as_numpy(_thread_sync(_per_rank(leaves, n), form))
     div, div_info = _model_sync(leaves, n, form, fold=False)
     mul, mul_info = _model_sync(leaves, n, form, fold=True)
     moved_blocks = edge_flips = blocks = 0
     for i in range(len(leaves)):
-        np.testing.assert_array_equal(got[i], div[i], err_msg=f"leaf {i}")
-        np.testing.assert_array_equal(ref[i], mul[i], err_msg=f"leaf {i}")
+        np.testing.assert_array_equal(got[i], mul[i], err_msg=f"leaf {i}")
+        np.testing.assert_array_equal(ref[i], div[i], err_msg=f"leaf {i}")
         d, m = div_info[i], mul_info[i]
         ok = ~d["bad"]
         moved = (d["scale"] != m["scale"]) & ok
@@ -479,3 +480,25 @@ def test_wrappers_run_the_plain_version_on_the_cpu():
     assert (q2.int() - q.int()).abs().max() <= 1 and s2.shape == s.shape
     with pytest.raises(ValueError, match="multiple"):
         j.block_absmax(torch.zeros(300))
+
+
+def test_the_scale_is_the_folded_reciprocal_of_the_default_compile():
+    """The plain version's block scale is JAX's ``max(absmax, 1e-30) /
+    127`` as a default (jitted) compile computes it, bit for bit over
+    absmax values across 12 decades, zero and the floor; the division as
+    written differs from it by one ulp on a few percent of them."""
+    rng = np.random.default_rng(7)
+    a = np.concatenate([np.abs(rng.normal(size=4096))
+                        * 10.0 ** rng.uniform(-8, 4, size=4096),
+                        [0.0, 1e-35, 1e-30, 1.0, 127.0]]).astype(np.float32)
+    want = np.asarray(jax.jit(
+        lambda v: jnp.maximum(v, jnp.float32(1e-30)) / 127.0)(a))
+    _, scale = j.quantize_reference(torch.zeros(a.size * j.BLOCK),
+                                    torch.from_numpy(a))
+    np.testing.assert_array_equal(scale.numpy().view(np.int32),
+                                  want.view(np.int32))
+    divided = np.maximum(a, np.float32(1e-30)) / np.float32(127.0)
+    moved = divided != want
+    assert 0 < moved.sum() < 0.1 * a.size
+    assert (np.abs(divided[moved].view(np.int32)
+                   - want[moved].view(np.int32)) == 1).all()

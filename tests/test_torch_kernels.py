@@ -193,6 +193,42 @@ def test_fused_sgd_kernel_matches_plain(cuda_device, state, momentum, wd):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("state", [torch.float32, torch.bfloat16])
+def test_fused_sgd_kernel_on_odd_leaves(cuda_device, state):
+    """Kernel D on leaves of 1, 3, 4, 4097 and 40,000 elements held as
+    views at storage offsets 0-3, their grads at other offsets (so some
+    leaves split into head, vectors and tail and some never align):
+    bit-equal to the plain version at f32 state and with a bf16 trace;
+    a second call on the same buffers reuses the table, and a grad of
+    another dtype in its place still raises."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    sizes, offs = [1, 3, 4, 4097, 40000, 4097], [1, 2, 3, 1, 0, 2]
+
+    def views(dtype, shifts):
+        out = []
+        for n, o, shift in zip(sizes, offs, shifts):
+            buf = torch.randn(n + 8, device=cuda_device, generator=gen)
+            out.append(buf.to(dtype)[(o + shift) % 4:][:n])
+        return out
+
+    same, grad_shift = [0] * 6, [0, 1, 0, 0, 0, 1]
+    ps_, gs, ts = views(torch.float32, same), \
+        views(torch.float32, grad_shift), views(state, same)
+    for _ in range(2):
+        ref_p = [p.clone() for p in ps_]
+        ref_t = [t.clone() for t in ts]
+        before = fs.launches
+        fs.fused_sgd_update(ps_, gs, ts, 0.1, 0.9, 1e-4)
+        fs.fused_sgd_reference(ref_p, gs, ref_t, 0.1, 0.9, 1e-4)
+        torch.cuda.synchronize()
+        assert fs.launches == before + 1
+        for a, b in zip(ps_ + ts, ref_p + ref_t):
+            assert torch.equal(a, b)
+    with pytest.raises(TypeError):
+        fs.fused_sgd_update(ps_, gs[:-1] + [gs[-1].double()], ts, 0.1, 0.9,
+                            1e-4)
+
+
 def test_training_wrappers_raise_rather_than_fall_back(cuda_device):
     x = torch.zeros(2, 8, 3, 3, device=cuda_device)  # NCHW-contiguous
     with pytest.raises(ValueError, match="channels_last"):
@@ -476,16 +512,22 @@ def _stem_inputs(dev, b, h, w, dtype, contiguous, seed, f=64):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,h,w,contiguous", [
-    (128, 112, 112, True), (8, 112, 112, False), (1, 2, 2, True),
-    (3, 4, 6, False), (2, 7, 5, True)])
+    (128, 112, 112, True), (8, 112, 112, False), (16, 112, 112, True),
+    (1, 2, 2, True), (3, 4, 6, False), (2, 7, 5, True)])
 def test_stem_dw_kernel_matches_plain(cuda_device, dtype, b, h, w,
                                       contiguous):
     """Kernel I against its plain version (float32, TF32 off) and the
     float64 truth at the fit width, a float32 batch and edge shapes.
-    Bound per output: two float32 sums of at most R = B·H·W terms differ
-    by at most 2·R·2⁻²⁴·Σ|x||g|; the kernel's own chain is L_k
-    (``chain_length``), so it is within 1.01·L_k·2⁻²⁴·Σ|x||g| of the
-    truth.  Two launches are bit-equal."""
+    Bound per output: a sum whose chain is L in units of u is within
+    L·u·Σ|x||g| of the exact sum; the kernel's chain is L_k units of
+    ``error_unit`` (bf16: the tensor cores' truncated last place, 2⁻²³;
+    f32: 2⁻²⁴), the plain version's at most R = B·H·W float32 additions.
+    So kernel and plain differ by at most 2·max(L_k·u_k, R·2⁻²⁴)·Σ|x||g|,
+    and the kernel is within 1.01·L_k·u_k·Σ|x||g| of the truth; and, as
+    that worst case is above a typical |dW| at the fit width, within
+    ``REL_NORM_LIMIT`` of the truth's norm (a kernel that skips or
+    misreads a 16-position step fails that).  B=16 at 112x112: 7 tiles a
+    run wrap the 4-stage copy ring.  Two launches are bit-equal."""
     x, g = _stem_inputs(cuda_device, b, h, w, dtype, contiguous, b + h)
     before = sc.launches
     got = sc.stem_dw(x, g)
@@ -498,32 +540,38 @@ def test_stem_dw_kernel_matches_plain(cuda_device, dtype, b, h, w,
         plain = sc.stem_dw_plain(x, g)
     truth = sc.stem_dw_plain(x.double(), g.double())
     mag = sc.stem_dw_plain(x.double().abs(), g.double().abs())
-    eps = 2.0 ** -24
-    lk = sc.chain_length(b, h, w)
-    big = max(lk, b * h * w)
-    assert ((got.double() - plain.double()).abs()
-            <= 2 * big * eps * mag).all()
-    assert ((got.double() - truth).abs() <= 1.01 * lk * eps * mag).all()
+    lk = sc.chain_length(b, h, w, dtype) * sc.error_unit(dtype)
+    big = max(lk, b * h * w * 2.0 ** -24)
+    assert ((got.double() - plain.double()).abs() <= 2 * big * mag).all()
+    assert ((got.double() - truth).abs() <= 1.01 * lk * mag).all()
+    assert (torch.linalg.vector_norm(got.double() - truth)
+            <= sc.REL_NORM_LIMIT * torch.linalg.vector_norm(truth))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kh,kw,pads,f", [(3, 3, ((1, 1), (1, 1)), 16),
                                           (8, 8, ((0, 0), (3, 4)), 64),
                                           (2, 5, ((1, 0), (0, 2)), 12)])
-def test_stem_dw_kernel_other_taps_and_pads(cuda_device, kh, kw, pads, f):
-    """Other kernel sizes, pads and filter counts: more than 256
-    (tap, 4-filter) pairs spread over grid.y."""
+def test_stem_dw_kernel_other_taps_and_pads(cuda_device, kh, kw, pads, f,
+                                            dtype):
+    """Other kernel sizes, pads and filter counts: on the f32 path more
+    than 256 (tap, 4-filter) pairs spread over grid.y; on the bf16 path
+    more than three 64-row tiles (8x8: 768 rows) spread over grid.y, and
+    F = 12 takes the 8-byte g copies."""
     g = torch.Generator(device=cuda_device).manual_seed(kh * kw)
-    x = torch.randn(3, 9, 10, 12, device=cuda_device, generator=g)
+    x = torch.randn(3, 9, 10, 12, device=cuda_device, generator=g).to(dtype)
     ho = 9 + pads[0][0] + pads[0][1] - kh + 1
     wo = 10 + pads[1][0] + pads[1][1] - kw + 1
-    gy = torch.randn(3, ho, wo, f, device=cuda_device, generator=g)
+    gy = torch.randn(3, ho, wo, f, device=cuda_device, generator=g).to(dtype)
     got = sc.stem_dw(x, gy, kh, kw, pads)
     truth = sc.stem_dw_plain(x.double(), gy.double(), kh, kw, pads)
     mag = sc.stem_dw_plain(x.double().abs(), gy.double().abs(), kh, kw, pads)
-    lk = sc.chain_length(3, ho, wo)
+    lk = sc.chain_length(3, ho, wo, dtype, kh, kw) * sc.error_unit(dtype)
     assert got.shape == (f, 12, kh, kw)
-    assert ((got.double() - truth).abs()
-            <= 1.01 * lk * 2.0 ** -24 * mag).all()
+    assert ((got.double() - truth).abs() <= 1.01 * lk * mag).all()
+    assert (torch.linalg.vector_norm(got.double() - truth)
+            <= sc.REL_NORM_LIMIT * torch.linalg.vector_norm(truth))
+    assert torch.equal(got, sc.stem_dw(x, gy, kh, kw, pads))
 
 
 def test_stem_conv_function_on_the_card(cuda_device):

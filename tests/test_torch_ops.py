@@ -29,9 +29,11 @@ from active_learning_tpu.data.core import ViewSpec as JaxViewSpec
 from active_learning_tpu.data.synthetic import SYNTH_NORM
 from active_learning_tpu.models.resnet import FusedBatchNorm
 from active_learning_tpu.strategies import scoring as jax_scoring
+from active_learning_tpu.train import optim as jax_optim
 
 from active_learning_tpu_torch.ops import _build
 from active_learning_tpu_torch.ops import bn_act as ba
+from active_learning_tpu_torch.ops import fused_sgd as fs
 from active_learning_tpu_torch.ops import prob_stats as ps
 
 
@@ -251,3 +253,154 @@ def test_bn_act_requires_channels_last():
         ba.bn_act(xcl.to(torch.float64), coeffs)
     with pytest.raises(ValueError, match="coefficients"):
         ba.bn_act(xcl, tuple(torch.zeros(3) for _ in range(3)))
+
+
+# -- fused_sgd: the leaf split of kernel D ------------------------------------
+
+_BASE = 1 << 20
+
+
+@pytest.mark.parametrize("numel", [0, 1, 3, 4, 4097])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12])
+@pytest.mark.parametrize("t_size", [4, 2])
+def test_leaf_split_head_vectors_tail(offset, numel, t_size):
+    """Buffers that start ``offset`` bytes past a 16-byte boundary (the
+    bf16 trace ``offset / 2``): a head of (16 − offset) mod 16 / 4 scalar
+    elements, then 4-element vectors at which p, g and the trace are all
+    aligned (16 bytes; 8 for bf16), then a tail of fewer than 4."""
+    p, g = _BASE + offset, _BASE + 4096 + offset
+    t = _BASE + 8192 + offset * t_size // 4
+    head, vectors, tail = fs.leaf_split(p, g, t, numel, t_size)
+    assert head + 4 * vectors + tail == numel
+    if numel == 0:
+        assert (head, vectors, tail) == (0, 0, 0)
+        return
+    want = (16 - offset) % 16 // 4
+    if want >= numel:
+        assert (head, vectors, tail) == (numel, 0, 0)
+        return
+    assert head == want and 0 <= tail < 4
+    assert (p + 4 * head) % 16 == 0 and (g + 4 * head) % 16 == 0
+    assert (t + t_size * head) % (4 * t_size) == 0
+    assert fs.leaf_split(p, g, 0, numel) == (head, vectors, tail)
+
+
+@pytest.mark.parametrize("g_off,t_off", [(4, 0), (0, 8), (12, 12), (0, 2)])
+def test_leaf_split_buffers_that_never_align_go_scalar(g_off, t_off):
+    """A grad or trace whose offset differs from the param's (a view at
+    an odd storage offset beside an aligned buffer) never reaches a
+    16-byte boundary at the same element: the whole leaf is its head."""
+    assert fs.leaf_split(_BASE, _BASE + 4096 + g_off, _BASE + 8192 + t_off,
+                         4097) == (4097, 0, 0)
+
+
+def _walk(table, units, grid):
+    """Each element each block of a ``grid``-block launch updates, as
+    ``csrc/fused_sgd.cu`` walks the table: block k takes units [k·U/G,
+    (k+1)·U/G), finds its first leaf by bisection over the first units,
+    then a leaf's vectors (4 elements from ``head``) and its head and
+    tail elements."""
+    seen = [np.zeros(int(n), np.int32) for n in table[:, 6]]
+    u0s = table[:, 3]
+    for k in range(grid):
+        ub, ue = units * k // grid, units * (k + 1) // grid
+        if ub >= ue:
+            continue
+        lo = int(np.searchsorted(u0s, ub, side="right")) - 1
+        for leaf in range(lo, len(table)):
+            u0, n4, head, numel = (int(v) for v in table[leaf, 3:7])
+            if u0 >= ue:
+                break
+            a, z = max(ub, u0) - u0, min(ue - u0, n4 + numel - 4 * n4)
+            for v in range(a, min(z, n4)):
+                seen[leaf][head + 4 * v:head + 4 * v + 4] += 1
+            for u in range(max(a, n4), z):
+                s = u - n4
+                seen[leaf][s if s < head else s + 4 * n4] += 1
+    return seen
+
+
+def test_leaf_table_units_cover_every_element_once():
+    """Every element of every leaf (aligned, odd offsets, never-aligned,
+    empty, 1, 3, 4097 and 40,000 elements) is updated by exactly one
+    block, for a grid of 1, 7 or 528 blocks."""
+    rows, base = [], _BASE
+    for i, (n, off, g_off) in enumerate([
+            (4097, 0, 0), (1, 4, 4), (0, 0, 0), (3, 8, 8), (40000, 12, 12),
+            (4, 4, 0), (64, 0, 0), (4097, 8, 8), (5, 0, 0)]):
+        rows.append((base + off, base + (1 << 24) + g_off, 0, n))
+        base += 4 * n + 64
+    table, units = fs.leaf_table(rows)
+    assert units == sum(r[3] for r in rows) - 3 * sum(
+        table[:, 4])
+    for grid in (1, 7, 528):
+        for leaf, seen in enumerate(_walk(table, units, grid)):
+            assert (seen == 1).all(), (grid, leaf)
+
+
+def _views(n: int, offset: int, values: np.ndarray, dtype=torch.float32):
+    """A leaf of ``n`` values as a view at storage offset ``offset``."""
+    buf = torch.zeros(n + offset + 3, dtype=dtype)
+    v = buf[offset:offset + n]
+    v.copy_(torch.from_numpy(values).to(dtype))
+    return v
+
+
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+def test_plain_update_on_odd_leaves_matches_jax(state):
+    """The update on leaves of 1, 3, 4 and 4097 elements held as views at
+    storage offsets 1-3 (what the kernel cuts into head, vectors and
+    tail) against JAX's ``fused_sgd_update``: bit-equal at f32 state,
+    the trace within one bf16 ulp at bf16 state."""
+    rng = np.random.default_rng(3)
+    sizes, offs = [1, 3, 4, 4097, 4097], [1, 2, 3, 1, 0]
+    ps_ = [rng.normal(size=n).astype(np.float32) for n in sizes]
+    gs = [rng.normal(size=n).astype(np.float32) for n in sizes]
+    ts = [rng.normal(size=n).astype(np.float32) for n in sizes]
+    sdt = jnp.float32 if state == "f32" else jnp.bfloat16
+    tdt = torch.float32 if state == "f32" else torch.bfloat16
+    jt = [jnp.asarray(t).astype(sdt) for t in ts]
+    lr, mu, wd = 0.1, 0.9, 1e-4
+    new_p, new_s = jax_optim.fused_sgd_update(
+        [jnp.asarray(g) for g in gs], {"trace": jt},
+        [jnp.asarray(p) for p in ps_], jnp.float32(lr), mu, wd, sdt)
+    tp = [_views(n, o, p) for n, o, p in zip(sizes, offs, ps_)]
+    tg = [_views(n, (o + 1) % 4, g) for n, o, g in zip(sizes, offs, gs)]
+    tt = [_views(n, o, np.array(t.astype(jnp.float32)), tdt)
+          for n, o, t in zip(sizes, offs, jt)]
+    fs.fused_sgd_update(tp, tg, tt, lr, mu, wd)
+    for a, b in zip(tp, new_p):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b in zip(tt, new_s["trace"]):
+        ref = np.asarray(b.astype(jnp.float32))
+        got = a.float().numpy()
+        if state == "f32":
+            np.testing.assert_array_equal(got, ref)
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 1e-30)))
+                          - 7)
+            assert np.all(np.abs(got - ref) <= ulp)
+
+
+def _c_param_counts(name: str) -> dict:
+    """Parameter count of each ``extern "C"`` function of csrc/<name>.cu."""
+    import os
+    import re
+    with open(os.path.join(_build.CSRC_DIR, f"{name}.cu")) as fh:
+        text = fh.read()
+    body = text[text.index('extern "C" {'):]
+    return {m.group(1): len(m.group(2).split(","))
+            for m in re.finditer(r"^int (\w+)\(([^)]*)\)", body, re.M)}
+
+
+@pytest.mark.parametrize("module,source", [("stem_conv", "stem_dw"),
+                                           ("int8_sync", "int8_sync")])
+def test_ctypes_bindings_match_the_c_signatures(module, source):
+    """Each bound entry point declares as many ctypes arguments as its C
+    function takes (a short list would pass a pointer as garbage)."""
+    import importlib
+    mod = importlib.import_module(f"active_learning_tpu_torch.ops.{module}")
+    counts = _c_param_counts(source)
+    assert set(mod._ARGTYPES) == set(counts)
+    for fn, argtypes in mod._ARGTYPES.items():
+        assert len(argtypes) == counts[fn], fn

@@ -308,6 +308,68 @@ def test_stem_dw_checks_its_arguments():
     assert stem_conv.chain_length(128, 112, 112) == 28 * 4 * 28 + 512
 
 
+# -- kernel I's partition: a function of the shape alone ----------------------
+
+def _no_card(monkeypatch):
+    """Make any question to the card raise: a partition that asked would
+    fail."""
+    def ask(*a, **k):
+        raise AssertionError("the partition consulted the card")
+    for name in ("get_device_properties", "device_count", "is_available",
+                 "current_device"):
+        monkeypatch.setattr(torch.cuda, name, ask)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,ho,wo,kh,kw", [
+    (128, 112, 112, 4, 4), (8, 112, 112, 4, 4), (1, 2, 2, 4, 4),
+    (3, 4, 6, 4, 4), (2, 7, 5, 4, 4), (2, 9, 130, 4, 4), (3, 9, 17, 8, 8)])
+def test_stem_dw_runs_cover_every_position_once(monkeypatch, dtype, b, ho,
+                                                wo, kh, kw):
+    """The kernel's runs (``partition``: tiles of ``tile_rows x
+    tile_cols`` positions, run k the tiles [k·per, (k+1)·per)) cover every
+    output position exactly once, and the plan is computed without
+    asking the card (so it is the same on any SM count)."""
+    _no_card(monkeypatch)
+    part = stem_conv.partition(b, ho, wo, dtype, kh, kw)
+    assert part == stem_conv.partition(b, ho, wo, dtype, kh, kw)
+    count = np.zeros((b, ho, wo), np.int32)
+    nr, nc = -(-ho // part.tile_rows), -(-wo // part.tile_cols)
+    for k in range(part.nblk):
+        run = range(k * part.per, min((k + 1) * part.per, part.tiles))
+        assert len(run) > 0
+        for t in run:   # the kernel's order: image, row tile, column tile
+            img, rem = divmod(t, nr * nc)
+            i0, j0 = rem // nc * part.tile_rows, rem % nc * part.tile_cols
+            count[img, i0:i0 + part.tile_rows, j0:j0 + part.tile_cols] += 1
+    assert (count == 1).all()
+    if dtype == torch.bfloat16:
+        assert part.tile_rows == 2
+        assert part.tile_cols // 8 in stem_conv._TC_STEPS
+        assert stem_conv._tc_smem(part.tile_cols, kh, kw) \
+            <= stem_conv._SMEM_LIMIT
+        assert part.nblk <= stem_conv._TC_RUNS
+
+
+def test_stem_dw_tensor_core_plan_at_the_fit_width(monkeypatch):
+    """At B=128 x 112x112 bf16: 2 x 112 tiles (7,168), 131 runs of 55,
+    four stages; L_k = 18 units of 2⁻²³ per 16-position step (55 tiles
+    of 14 steps) plus the 131-partial fold.  The f32 path keeps its
+    4 x 28 tiles, 512 runs and 2⁻²⁴."""
+    _no_card(monkeypatch)
+    part = stem_conv.partition(128, 112, 112, torch.bfloat16)
+    assert part == stem_conv.Partition(2, 112, 7168, 55, 131)
+    assert stem_conv.chain_length(128, 112, 112, torch.bfloat16) \
+        == 18 * 55 * 14 + 131
+    assert stem_conv.error_unit(torch.bfloat16) == 2.0 ** -23
+    assert stem_conv.error_unit(torch.float32) == 2.0 ** -24
+    assert stem_conv.partition(128, 112, 112) == stem_conv.Partition(
+        4, 28, 14336, 28, 512)
+    # 8x8 taps: fewer columns a tile, to fit the four stages.
+    wide = stem_conv.partition(2, 64, 200, torch.bfloat16, 8, 8)
+    assert wide.tile_cols == 56
+
+
 @pytest.mark.parametrize("dt", [jnp.float32, jnp.float64])
 def test_s2d_stem_conv_matches_jax_module(dt):
     """The port's ``S2DStemConv`` against JAX's ``S2DStemConv`` module:
