@@ -1,11 +1,14 @@
-// Kernel E: the k-center distance fold, the masked top-q and the D^2 draw.
+// Kernel E: the k-center distance fold, the masked top-q, the batched
+// greedy's re-check and the D^2 draw.
 //
 // Replaces the JAX package's k-center device functions (ROADMAP K4): the
 // Pallas kernel ops/kcenter_pallas.py::fused_update_argmax (added 7ffa47a,
 // deleted eaf35d5) and what took its place at HEAD,
 // active_learning_tpu/strategies/scoring.py:45-61 batched_min_dist_update,
 // strategies/kcenter.py:165-170 _min_dist_chunk, :189-227 _kcenter_scan
-// (the D^2 draw is its randomized arm) and :294-331 _kcenter_scan_batched.
+// (the D^2 draw is its randomized arm) and :294-331 _kcenter_scan_batched
+// with its re-check (:230-291), which the JAX package runs on the device
+// inside one lax.while_loop.
 //
 // The pool is held as factor matrices: one (Coreset, F [N, D]) or two
 // (BADGE, A [N, C] and E [N, D]); a dot product is the product over the
@@ -13,27 +16,43 @@
 //     d_ic = (sqn_i + sqn_c) - 2 * prod_F (F_i . F_c)
 // and the fold is min_dist_i <- min(min_dist_i, min_c d_ic).
 //
-// Three entry points share one tile loop:
+// Entry points:
 //   kc_fold_select  fold <= 8 centers, clear their `selectable`, then the
-//                   masked top-q of where(selectable > 0, min_dist, -inf)
-//                   as block-local candidates, and a one-block merge.
+//                   masked top-q of where(selectable > 0, min_dist, -inf);
 //                   q = 1 is the sequential scan's argmax.
+//   kc_batch_pass   one pass of the batched greedy, with no host in it:
+//                   fold the previous pass's accepted sequence (read from
+//                   device memory), take the masked top-q, form the
+//                   candidates' [q, q] distances, run the exact in-batch
+//                   re-check (strict > against the q-th value, at most
+//                   min(q, budget - count) accepted, the lowest pool index
+//                   among equal maxima), write the padded sequence and its
+//                   distances at picks[count:], dists[count:] and advance
+//                   `count` in device memory.  A pass that finds count >=
+//                   budget does nothing, so the host can queue
+//                   ceil((budget - count) / q) passes before it reads
+//                   count once.
 //   kc_fold_draw    fold <= 1 center, then the D^2 Gumbel-max draw over
 //                   weights clip(min_dist, 0) * selectable (or selectable
-//                   when those sum to 0), block-local and merged.
-//   kc_min_fold     fold up to any number of centers (the labeled set's
-//                   initial min), no reduce.
-// Centers are read from device memory, so a scan step's pick feeds the
-// next step's fold without the host.
+//                   when those sum to 0).
+//   kc_min_fold     fold any number of centers (the labeled set's initial
+//                   min), no reduce.
 //
-// Arithmetic.  Every dot product is a float32 fmaf chain in ascending
-// feature order, one chain per (row, center): the result does not depend
-// on the tiling or the scheduling.  No tensor core and no TF32: the JAX
-// package selects in float32.  The distance is formed as (sqn_i + sqn_c)
-// minus 2*dot with __fadd_rn/__fsub_rn, as the plain version's separate
-// ops do.  Top-q ranks by value, then by the LOWER row index, the order
-// jax.lax.top_k and argmax use; every reduction is a max/min under that
-// total order, so it is exact whatever the tree.
+// Arithmetic.  Float32 FMA on the CUDA cores, no TF32 and no tensor core:
+// the JAX package selects in float32.  In the fold a dot product is a
+// fixed tree that depends on the feature count alone: lane l of a warp
+// owns features 128m + 4l .. 128m + 4l + 3 of every 128-feature chunk m
+// and chains its fmaf over them in that order; the 32 lane sums are then
+// added in the butterfly order (xor 16, 8, 4, 2, 1).  The re-check forms
+// its [q, q] distances with the same lane partition and the same tree, so
+// it compares exactly the numbers the next fold writes, and the batched
+// picks equal the q = 1 scan's pick for pick.  The distance is
+// (sqn_i + sqn_c) - 2*dot with __fadd_rn/__fsub_rn, as the plain
+// version's separate ops.  kc_min_fold chains each (row, center) dot in
+// ascending feature order.  Nothing depends on the grid, the SM count or
+// the scheduling: two launches give equal bits.  Ranking is by value,
+// then by the LOWER row index (jax.lax.top_k's and argmax's order); every
+// reduction is a max/min under that total order, exact in any tree.
 //
 // The D^2 draw generates its own random bits: Threefry-2x32 (20 rounds)
 // of the 64-bit row counter under the step's key, the two output words
@@ -42,14 +61,30 @@
 // bits equal JAX's; logf may differ from the host's log by an ulp.
 //
 // Bound.  A fold over q <= 8 centers reads each factor row once and does
-// 2*q flops per element: 1 GB per pass at N = 131,072 x 2048, so memory
-// (0.32 ms at 3.35 TB/s).  The initial min over L labeled centers does
-// 2*L flops per element: operations (67 TFLOP/s float32 outside the
-// tensor cores).  Design: shared-memory tiles of TR rows x TC centers x 16
-// features; the fold tile is 128 rows x 8 centers with one row per thread
-// (center values broadcast from shared memory), the initial-min tile
-// 64 x 64 with a 4 x 4 register block per thread.  Candidates: one block
-// keeps its q best, one block of 1024 threads merges them.
+// 2*q flops per element: 1 GB a pass at N = 131,072 x 2048, so memory
+// (0.32 ms at 3.35 TB/s); the merge reads q candidate rows more.  Design:
+// a warp folds 4 rows at once, each lane loading 16 bytes of each row a
+// chunk straight into registers (read-only path, the next chunk's loads
+// issued before this chunk's FMAs: 4 KB in flight a warp), the centers'
+// features held in shared memory and read as 16-byte vectors, one per 16
+// FMAs.  Rows are read once and never shared, so they do not pass through
+// shared memory: its port carries the centers.  The 32 (row, center)
+// lane sums are reduced by a recursive-halving transpose (31 shuffles
+// for 32 sums), after which lane l holds row l/8, center l%8.  Each row's
+// owner lane keeps a sorted list of its best q rows; lists merge by
+// warp-level pop rounds on (value, index), blocks walk contiguous row
+// ranges (at most 264 blocks), and one block of 1024 threads merges the
+// blocks' candidates and runs the re-check.
+//
+// The initial min over L labeled centers does 2*L flops per element:
+// operations (67 TFLOP/s float32 outside the tensor cores).  Design: a
+// 128-row x 128-center block tile, 8 x 8 outputs per thread, K-major
+// tiles of 32 features copied by a double-buffered cp.async ring (16-byte
+// copies where the rows are 16-byte aligned, 4-byte otherwise; 72 KB of
+// dynamic shared memory), 16-byte shared-memory reads (one per 4 FMAs of
+// a thread's 8 x 8 block, spread over the banks by a padded row stride),
+// the min taken in the epilogue: no [N, L] matrix is written.  One block
+// an SM: its ~250 registers a thread (two blocks would spill).
 //
 // C interface for ctypes; the wrapper is active_learning_tpu_torch/ops/
 // kcenter.py.  Each function returns cudaGetLastError() after its launches.
@@ -61,9 +96,15 @@
 
 namespace {
 
-constexpr int KC = 16;       // features per shared-memory tile
-constexpr int MAXQ = 8;      // centers per fold, candidates per block
+constexpr int MAXQ = 8;          // centers per fold, candidates per block
+constexpr int CHUNK = 128;       // features a warp covers per step
+constexpr int FOLD_WARPS = 8;
+constexpr int FOLD_THREADS = FOLD_WARPS * 32;
+constexpr int RPW = 4;           // rows a warp folds at once
+constexpr int ROW_GROUP = FOLD_WARPS * RPW;
+constexpr int FOLD_MAX_BLOCKS = 264;
 constexpr int MERGE_THREADS = 1024;
+constexpr int SMEM_LIMIT = 200 * 1024;  // dynamic, beside ~4 KB static
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---- ranking ---------------------------------------------------------------
@@ -82,6 +123,8 @@ __device__ __forceinline__ Cand better(const Cand& a, const Cand& b) {
   return ranks_before(b.v, b.i, a.v, a.i) ? b : a;
 }
 
+__device__ __forceinline__ Cand none() { return Cand{-INFINITY, INT_MAX, 0.f}; }
+
 __device__ __forceinline__ Cand shfl_cand(const Cand& c, int o) {
   Cand r;
   r.v = __shfl_xor_sync(kFull, c.v, o);
@@ -90,28 +133,75 @@ __device__ __forceinline__ Cand shfl_cand(const Cand& c, int o) {
   return r;
 }
 
-// The best candidate of the block; `sh` holds one entry per warp.  Every
-// thread returns the winner.
-__device__ Cand block_best(Cand c, Cand* sh) {
+__device__ __forceinline__ Cand warp_best(Cand c) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) c = better(c, shfl_cand(c, o));
+  return c;
+}
+
+// Insert c into a best-first list of q entries (the worst falls out).
+__device__ __forceinline__ void insert(Cand (&list)[MAXQ], Cand c, int q) {
+#pragma unroll
+  for (int s = 0; s < MAXQ; ++s) {
+    if (s < q && ranks_before(c.v, c.i, list[s].v, list[s].i)) {
+      const Cand t = list[s];
+      list[s] = c;
+      c = t;
+    }
+  }
+}
+
+// The warp's best q of its lanes' sorted lists, best first, into out[q]
+// (written by lane 0).  Each round takes the best head and pops it.
+__device__ __forceinline__ void warp_top(Cand (&list)[MAXQ], int q,
+                                         Cand* out) {
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < q; ++r) {
+    const Cand w = warp_best(list[0]);
+    if (lane == 0) out[r] = w;
+    if (list[0].i == w.i) {
+#pragma unroll
+      for (int s = 0; s < MAXQ - 1; ++s) list[s] = list[s + 1];
+      list[MAXQ - 1] = none();
+    }
+  }
+}
+
+// The block's best q of its threads' lists, into top[q] (shared memory,
+// visible to every thread on return).  wl: [32][MAXQ] shared scratch.
+__device__ void block_top(Cand (&list)[MAXQ], int q, Cand (*wl)[MAXQ],
+                          Cand* top) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = (blockDim.x + 31) >> 5;
+  const int nwarps = blockDim.x >> 5;
+  warp_top(list, q, wl[warp]);
+  __syncthreads();
+  if (warp == 0) {
+    Cand l2[MAXQ];
+#pragma unroll
+    for (int s = 0; s < MAXQ; ++s)
+      l2[s] = (lane < nwarps && s < q) ? wl[lane][s] : none();
+    warp_top(l2, q, top);
+  }
+  __syncthreads();
+}
+
+// The block's best candidate; every thread returns it.  sh: [33].
+__device__ Cand block_best(Cand c, Cand* sh) {
+  c = warp_best(c);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
   if (lane == 0) sh[warp] = c;
   __syncthreads();
   if (warp == 0) {
-    Cand w = lane < nwarps ? sh[lane] : Cand{-INFINITY, INT_MAX, 0.f};
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) w = better(w, shfl_cand(w, o));
+    Cand w = lane < nwarps ? sh[lane] : none();
+    w = warp_best(w);
     if (lane == 0) sh[32] = w;
   }
   __syncthreads();
-  Cand out = sh[32];
+  const Cand out = sh[32];
   __syncthreads();
   return out;
 }
-
-__device__ __forceinline__ Cand none() { return Cand{-INFINITY, INT_MAX, 0.f}; }
 
 // ---- Threefry-2x32 ---------------------------------------------------------
 
@@ -151,66 +241,113 @@ __device__ __forceinline__ float tf_gumbel(uint32_t bits) {
   return -logf(-logf(u));
 }
 
-// ---- the tile loop ---------------------------------------------------------
+// ---- the fold's dot products -----------------------------------------------
 
-// acc[i][j] = F_row . F_center over one factor, for this thread's RM rows
-// and CM centers of the TR x TC tile at (row0, c0).  Each dot product is
-// one fmaf chain in ascending feature order.
-template <int TR, int TC, int RM, int CM>
-__device__ __forceinline__ void tile_dots(
-    const float* __restrict__ f, int d, int n, int row0,
-    const int64_t* __restrict__ centers, int c0, int nc,
-    float (*As)[TR + 1], float (*Bs)[TC + 1], float (&acc)[RM][CM]) {
-  constexpr int THREADS = (TR / RM) * (TC / CM);
-  const int t = threadIdx.x;
-  const int tr = t / (TC / CM), tc = t % (TC / CM);
+struct Factor {
+  const float* f;
+  int d;       // features
+  int chunks;  // ceil(d / CHUNK)
+  int vec;     // 1: rows start on 16 bytes (d % 4 == 0, aligned base)
+};
+
+// Features k..k+3 of a row; zeros past the row's end or the matrix's.
+__device__ __forceinline__ float4 load4(const Factor& F, int row, int n,
+                                        int k) {
+  float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row >= n || k >= F.d) return z;
+  const float* p = F.f + (size_t)row * F.d + k;
+  if (F.vec) return __ldg(reinterpret_cast<const float4*>(p));
+  z.x = __ldg(p);
+  if (k + 1 < F.d) z.y = __ldg(p + 1);
+  if (k + 2 < F.d) z.z = __ldg(p + 2);
+  if (k + 3 < F.d) z.w = __ldg(p + 3);
+  return z;
+}
+
+// One lane's chain over four features: the order every dot product of
+// the fold and the re-check takes.
+__device__ __forceinline__ float fma4(const float4& a, const float4& b,
+                                      float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// acc[r * MAXQ + j] = this lane's partial of (row row0 + r) . (center j)
+// over one factor; cs: the centers' features in shared memory, center j
+// at cs + j * chunks * CHUNK, zero past d.
+__device__ __forceinline__ void lane_dots(const Factor& F, const float* cs,
+                                          int nc, int row0, int n,
+                                          float (&acc)[RPW * MAXQ]) {
+  const int lane = threadIdx.x & 31;
+  const int stride = F.chunks * CHUNK;
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int e = 0; e < RPW * MAXQ; ++e) acc[e] = 0.f;
+  float4 cur[RPW], nxt[RPW];
 #pragma unroll
-    for (int j = 0; j < CM; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    for (int e = t; e < TR * KC; e += THREADS) {
-      const int r = e / KC, k = e % KC;
-      const int row = row0 + r, col = k0 + k;
-      As[k][r] = (row < n && col < d) ? f[(size_t)row * d + col] : 0.f;
+  for (int r = 0; r < RPW; ++r) cur[r] = load4(F, row0 + r, n, lane * 4);
+  for (int m = 0; m < F.chunks; ++m) {
+    const int k = m * CHUNK + lane * 4;
+#pragma unroll
+    for (int r = 0; r < RPW; ++r)
+      nxt[r] = m + 1 < F.chunks ? load4(F, row0 + r, n, k + CHUNK) : cur[r];
+#pragma unroll
+    for (int j = 0; j < MAXQ; ++j) {
+      if (j < nc) {
+        const float4 c = *reinterpret_cast<const float4*>(cs + j * stride + k);
+#pragma unroll
+        for (int r = 0; r < RPW; ++r)
+          acc[r * MAXQ + j] = fma4(cur[r], c, acc[r * MAXQ + j]);
+      }
     }
-    for (int e = t; e < TC * KC; e += THREADS) {
-      const int c = e / KC, k = e % KC;
-      const int ci = c0 + c, col = k0 + k;
-      Bs[k][c] = (ci < nc && col < d) ? f[(size_t)centers[ci] * d + col]
-                                      : 0.f;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int k = 0; k < KC; ++k) {
-      float a[RM], b[CM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = As[k][tr * RM + i];
-#pragma unroll
-      for (int j = 0; j < CM; ++j) b[j] = Bs[k][tc * CM + j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int r = 0; r < RPW; ++r) cur[r] = nxt[r];
   }
 }
 
-template <int TR, int TC, int RM, int CM>
-__device__ __forceinline__ void tile_products(
-    const float* f1, int d1, const float* f2, int d2, int n, int row0,
-    const int64_t* centers, int c0, int nc, float (*As)[TR + 1],
-    float (*Bs)[TC + 1], float (&prod)[RM][CM]) {
-  tile_dots<TR, TC, RM, CM>(f1, d1, n, row0, centers, c0, nc, As, Bs, prod);
-  if (f2 != nullptr) {
-    float acc[RM][CM];
-    tile_dots<TR, TC, RM, CM>(f2, d2, n, row0, centers, c0, nc, As, Bs, acc);
+// One halving step of the transpose: keep half of the values, add the
+// partner's copy of the same items.
+template <int H>
+__device__ __forceinline__ void halve(float (&v)[RPW * MAXQ], int lane) {
+  const bool up = lane & H;
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CM; ++j) prod[i][j] = __fmul_rn(prod[i][j], acc[i][j]);
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, H);
   }
+}
+
+// The warp sum of item `lane` of v[32] (item r * MAXQ + j): the same
+// tree as warp_sum, so the same bits.
+__device__ __forceinline__ float reduce_scatter(float (&v)[RPW * MAXQ]) {
+  const int lane = threadIdx.x & 31;
+  halve<16>(v, lane);
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0];
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = x + __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Row a . row b over one factor in the fold's order (every lane returns
+// it).
+__device__ __forceinline__ float warp_dot(const Factor& F, int a, int b,
+                                          int n) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int m = 0; m < F.chunks; ++m) {
+    const int k = m * CHUNK + lane * 4;
+    acc = fma4(load4(F, a, n, k), load4(F, b, n, k), acc);
+  }
+  return warp_sum(acc);
 }
 
 __device__ __forceinline__ float sq_dist(float sqn_i, float sqn_c, float dot) {
@@ -219,183 +356,475 @@ __device__ __forceinline__ float sq_dist(float sqn_i, float sqn_c, float dot) {
 
 // ---- fold + select / draw --------------------------------------------------
 
-constexpr int FOLD_TR = 128;  // rows per block, one per thread
+enum Mode { kSelect = 1, kDraw = 2, kBatch = 3 };
 
-enum Mode { kSelect = 1, kDraw = 2 };
+struct FoldArgs {
+  Factor f1, f2;
+  int two, n;
+  const float* sqn;
+  float* min_dist;
+  float* sel;
+  const int64_t* centers;
+  int nc, mode, q, rows_per_block;
+  uint32_t k0, k1;
+  const int* count;  // kBatch: skip the pass when *count >= budget
+  int budget;
+  float* cand_v;
+  int* cand_i;
+  float* cand_p;
+};
 
-__global__ void __launch_bounds__(FOLD_TR) fold_kernel(
-    const float* __restrict__ f1, int d1, const float* __restrict__ f2,
-    int d2, int n, const float* __restrict__ sqn, float* __restrict__ min_dist,
-    float* __restrict__ sel, const int64_t* __restrict__ centers, int nc,
-    int mode, int q, uint32_t k0, uint32_t k1, float* __restrict__ cand_v,
-    int* __restrict__ cand_i, float* __restrict__ cand_p) {
-  __shared__ float As[KC][FOLD_TR + 1];
-  __shared__ float Bs[KC][MAXQ + 1];
+__global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs a) {
+  extern __shared__ float4 smem4[];
   __shared__ float csq[MAXQ];
   __shared__ int cidx[MAXQ];
+  __shared__ Cand wl[32][MAXQ];
+  __shared__ Cand top[MAXQ];
   __shared__ Cand sh[33];
-  const int row0 = blockIdx.x * FOLD_TR;
-  const int row = row0 + threadIdx.x;
-  if (threadIdx.x < nc) {
-    cidx[threadIdx.x] = (int)centers[threadIdx.x];
-    csq[threadIdx.x] = sqn[centers[threadIdx.x]];
+  if (a.mode == kBatch && *a.count >= a.budget) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nc = a.nc;
+  float* cs1 = reinterpret_cast<float*>(smem4);
+  float* cs2 = cs1 + nc * a.f1.chunks * CHUNK;
+  if (tid < nc) {
+    cidx[tid] = (int)a.centers[tid];
+    csq[tid] = a.sqn[a.centers[tid]];
   }
-  float prod[1][MAXQ];
-  if (nc > 0)
-    tile_products<FOLD_TR, MAXQ, 1, MAXQ>(f1, d1, f2, d2, n, row0, centers, 0,
-                                          nc, As, Bs, prod);
   __syncthreads();
-  float md = -INFINITY, s = 0.f;
-  if (row < n) {
-    md = min_dist[row];
-    s = sel[row];
-    if (nc > 0) {
-      const float si = sqn[row];
-      float m = INFINITY;
-      bool center = false;
-#pragma unroll
-      for (int j = 0; j < MAXQ; ++j) {
-        if (j < nc) {
-          m = fminf(m, sq_dist(si, csq[j], prod[0][j]));
-          center |= cidx[j] == row;
-        }
-      }
-      md = fminf(md, m);
-      min_dist[row] = md;
-      if (center && s != 0.f) {
-        s = 0.f;
-        sel[row] = 0.f;
-      }
+  for (int t = 0; t < 1 + a.two; ++t) {
+    const Factor& F = t ? a.f2 : a.f1;
+    float* cs = t ? cs2 : cs1;
+    const int stride = F.chunks * CHUNK;
+    for (int e = tid; e < nc * stride; e += FOLD_THREADS) {
+      const int j = e / stride, k = e - j * stride;
+      cs[e] = k < F.d ? F.f[(size_t)cidx[j] * F.d + k] : 0.f;
     }
   }
-  if (mode == kSelect) {
-    // Masked top-q of the block, best first.
-    const Cand mine = row < n ? Cand{s > 0.f ? md : -INFINITY, row, 0.f}
-                              : none();
-    Cand prev = none();
-    for (int r = 0; r < q; ++r) {
-      const bool ok = r == 0 || ranks_before(prev.v, prev.i, mine.v, mine.i);
-      prev = block_best(ok ? mine : none(), sh);
-      if (threadIdx.x == 0) {
-        cand_v[blockIdx.x * q + r] = prev.v;
-        cand_i[blockIdx.x * q + r] = prev.i;
+  __syncthreads();
+
+  const int rb = blockIdx.x * a.rows_per_block;
+  const int re = min(a.n, rb + a.rows_per_block);
+  const int j = lane & (MAXQ - 1);
+  const bool owner = j == 0;
+  Cand list[MAXQ];
+#pragma unroll
+  for (int s = 0; s < MAXQ; ++s) list[s] = none();
+  Cand da = none(), db = none();
+  for (int row0 = rb + warp * RPW; row0 < re; row0 += ROW_GROUP) {
+    const int row = row0 + lane / MAXQ;
+    const bool live = row < re;
+    float dist = INFINITY;
+    bool is_center = false;
+    if (nc > 0) {
+      float acc[RPW * MAXQ];
+      lane_dots(a.f1, cs1, nc, row0, a.n, acc);
+      float dot = reduce_scatter(acc);
+      if (a.two) {
+        lane_dots(a.f2, cs2, nc, row0, a.n, acc);
+        dot = __fmul_rn(dot, reduce_scatter(acc));
+      }
+      if (live && j < nc) {
+        dist = sq_dist(a.sqn[row], csq[j], dot);
+        is_center = cidx[j] == row;
+      }
+#pragma unroll
+      for (int o = MAXQ / 2; o > 0; o >>= 1)
+        dist = fminf(dist, __shfl_xor_sync(kFull, dist, o));
+      const unsigned ball = __ballot_sync(kFull, is_center);
+      is_center = (ball >> (lane & ~(MAXQ - 1))) & 0xffu;
+    }
+    if (!(owner && live)) continue;
+    float md = a.min_dist[row];
+    float s = a.sel[row];
+    if (nc > 0) {
+      md = fminf(md, dist);
+      a.min_dist[row] = md;
+      if (is_center && s != 0.f) {
+        s = 0.f;
+        a.sel[row] = 0.f;
       }
     }
-  } else if (mode == kDraw) {
-    // Two Gumbel-max candidates: over log(p) (used when any p > 0) and over
-    // log(selectable) (the uniform fallback when every p is 0).
-    Cand a = none(), b = none();
-    if (row < n) {
+    if (a.mode == kDraw) {
+      // Two Gumbel-max candidates: over log(p) (used when any p > 0) and
+      // over log(selectable) (the uniform fallback when every p is 0).
       const float p = __fmul_rn(fmaxf(md, 0.f), s);
-      const float g = tf_gumbel(tf_bits(k0, k1, (uint64_t)row));
-      a = Cand{__fadd_rn(g, logf(p)), row, p};
-      b = Cand{__fadd_rn(g, logf(s)), row, p};
+      const float g = tf_gumbel(tf_bits(a.k0, a.k1, (uint64_t)row));
+      da = better(da, Cand{__fadd_rn(g, logf(p)), row, p});
+      db = better(db, Cand{__fadd_rn(g, logf(s)), row, p});
+    } else {
+      insert(list, Cand{s > 0.f ? md : -INFINITY, row, 0.f}, a.q);
     }
-    a = block_best(a, sh);
-    b = block_best(b, sh);
-    if (threadIdx.x == 0) {
-      cand_v[blockIdx.x * 2] = a.v;
-      cand_i[blockIdx.x * 2] = a.i;
-      cand_p[blockIdx.x * 2] = a.p;
-      cand_v[blockIdx.x * 2 + 1] = b.v;
-      cand_i[blockIdx.x * 2 + 1] = b.i;
-      cand_p[blockIdx.x * 2 + 1] = b.p;
+  }
+  if (a.mode == kDraw) {
+    da = block_best(da, sh);
+    db = block_best(db, sh);
+    if (tid == 0) {
+      a.cand_v[blockIdx.x * 2] = da.v;
+      a.cand_i[blockIdx.x * 2] = da.i;
+      a.cand_p[blockIdx.x * 2] = da.p;
+      a.cand_v[blockIdx.x * 2 + 1] = db.v;
+      a.cand_i[blockIdx.x * 2 + 1] = db.i;
+      a.cand_p[blockIdx.x * 2 + 1] = db.p;
+    }
+  } else {
+    block_top(list, a.q, wl, top);
+    if (tid < a.q) {
+      a.cand_v[blockIdx.x * a.q + tid] = top[tid].v;
+      a.cand_i[blockIdx.x * a.q + tid] = top[tid].i;
     }
   }
 }
 
-// Merge of the block candidates.  kSelect: the top q of m = blocks * q
-// candidates, best first, into out_v[q], out_i[q].  kDraw: the winner of
-// the log(p) candidates if it is finite, else of the log(selectable) ones;
-// out_i[0] = its row, out_v[0] = its weight p.
-__global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(
-    const float* __restrict__ cand_v, const int* __restrict__ cand_i,
-    const float* __restrict__ cand_p, int blocks, int q, int mode,
-    float* __restrict__ out_v, int64_t* __restrict__ out_i) {
+// ---- merge, re-check -------------------------------------------------------
+
+struct MergeArgs {
+  Factor f1, f2;
+  int two, n;
+  const float* sqn;
+  const float* cand_v;
+  const int* cand_i;
+  const float* cand_p;
+  int blocks, q, mode;
+  float* out_v;       // kSelect, kDraw
+  int64_t* out_i;
+  int* count;         // kBatch
+  int budget;
+  int64_t* seq;       // kBatch: the accepted sequence, padded [q]
+  int64_t* picks;     // kBatch: [budget + q]
+  float* dists;
+};
+
+// kSelect: the top q of the blocks' candidates, best first, into out_v,
+// out_i.  kDraw: the winner of the log(p) candidates if it is finite,
+// else of the log(selectable) ones; out_i[0] = its row, out_v[0] = its
+// weight p.  kBatch: the top q, their [q, q] distances, the re-check
+// (strategies/kcenter.py's _recheck_candidates, step for step), and the
+// sequence, its distances and the new count written to device memory;
+// out_v / out_i get the top q as in kSelect.
+__global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(MergeArgs a) {
+  __shared__ Cand wl[32][MAXQ];
+  __shared__ Cand top[MAXQ];
   __shared__ Cand sh[33];
-  if (mode == kSelect) {
-    const int m = blocks * q;
-    Cand prev = none();
-    for (int r = 0; r < q; ++r) {
-      Cand best = none();
-      for (int e = threadIdx.x; e < m; e += blockDim.x) {
-        const float v = cand_v[e];
-        const int i = cand_i[e];
-        if (r == 0 || ranks_before(prev.v, prev.i, v, i))
-          best = better(best, Cand{v, i, 0.f});
-      }
-      prev = block_best(best, sh);
-      if (threadIdx.x == 0) {
-        out_v[r] = prev.v;
-        out_i[r] = prev.i;
-      }
+  __shared__ float dcc[MAXQ][MAXQ];
+  const int tid = threadIdx.x;
+  if (a.mode == kDraw) {
+    Cand x = none(), y = none();
+    for (int e = tid; e < a.blocks; e += blockDim.x) {
+      x = better(x, Cand{a.cand_v[2 * e], a.cand_i[2 * e], a.cand_p[2 * e]});
+      y = better(y, Cand{a.cand_v[2 * e + 1], a.cand_i[2 * e + 1],
+                         a.cand_p[2 * e + 1]});
     }
-  } else {
-    Cand a = none(), b = none();
-    for (int e = threadIdx.x; e < blocks; e += blockDim.x) {
-      a = better(a, Cand{cand_v[2 * e], cand_i[2 * e], cand_p[2 * e]});
-      b = better(b, Cand{cand_v[2 * e + 1], cand_i[2 * e + 1],
-                         cand_p[2 * e + 1]});
+    x = block_best(x, sh);
+    y = block_best(y, sh);
+    if (tid == 0) {
+      const Cand w = x.v > -INFINITY ? x : y;
+      a.out_v[0] = w.p;
+      a.out_i[0] = w.i;
     }
-    a = block_best(a, sh);
-    b = block_best(b, sh);
-    if (threadIdx.x == 0) {
-      const Cand w = a.v > -INFINITY ? a : b;
-      out_v[0] = w.p;
-      out_i[0] = w.i;
+    return;
+  }
+  int count = 0;
+  if (a.mode == kBatch) {
+    count = *a.count;
+    if (count >= a.budget) return;
+  }
+  const int q = a.q;
+  Cand list[MAXQ];
+#pragma unroll
+  for (int s = 0; s < MAXQ; ++s) list[s] = none();
+  for (int e = tid; e < a.blocks * q; e += blockDim.x)
+    insert(list, Cand{a.cand_v[e], a.cand_i[e], 0.f}, q);
+  block_top(list, q, wl, top);
+  if (tid < q) {
+    a.out_v[tid] = top[tid].v;
+    a.out_i[tid] = top[tid].i;
+  }
+  if (a.mode != kBatch) return;
+
+  // The candidates' pairwise distances, in the fold's arithmetic.
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int p = warp; p < q * q; p += blockDim.x >> 5) {
+    const int r = p / q, c = p - r * q;
+    if (r > c) continue;
+    const int ra = top[r].i, rc = top[c].i;
+    float dot = warp_dot(a.f1, ra, rc, a.n);
+    if (a.two) dot = __fmul_rn(dot, warp_dot(a.f2, ra, rc, a.n));
+    if (lane == 0) {
+      const float d = sq_dist(a.sqn[ra], a.sqn[rc], dot);
+      dcc[r][c] = d;
+      dcc[c][r] = d;
     }
   }
+  __syncthreads();
+  if (tid != 0) return;
+
+  // The exact in-batch re-check.
+  const float thresh = top[q - 1].v;
+  float cur[MAXQ], dv[MAXQ];
+  bool accepted[MAXQ];
+  int order[MAXQ];
+#pragma unroll
+  for (int i = 0; i < MAXQ; ++i) {
+    cur[i] = i < q ? top[i].v : -INFINITY;
+    accepted[i] = i == 0;
+    order[i] = 0;
+    dv[i] = 0.f;
+  }
+  dv[0] = top[0].v;
+  const int limit = min(q, a.budget - count);
+  int n_acc = 1, last = 0;
+  bool stop = false;
+  for (int it = 0; it < q - 1; ++it) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < MAXQ; ++i) {
+      if (i < q) {
+        cur[i] = fminf(cur[i], dcc[i][last]);
+        m = fmaxf(m, accepted[i] ? -INFINITY : cur[i]);
+      }
+    }
+    // Lowest pool index among the maxima (the sentinel n elsewhere).
+    int p = 0;
+    long long key = LLONG_MAX;
+#pragma unroll
+    for (int i = 0; i < MAXQ; ++i) {
+      if (i < q) {
+        const float avail = accepted[i] ? -INFINITY : cur[i];
+        const long long k = avail >= m ? (long long)top[i].i : (long long)a.n;
+        if (k < key) {
+          key = k;
+          p = i;
+        }
+      }
+    }
+    const bool ok = m > thresh && !stop && n_acc < limit;
+    if (ok) {
+#pragma unroll
+      for (int i = 0; i < MAXQ; ++i) {
+        if (i == p) accepted[i] = true;
+        if (i == n_acc) {
+          order[i] = p;
+          dv[i] = m;
+        }
+      }
+      last = p;
+      ++n_acc;
+    }
+    stop = stop || !ok;
+  }
+  int first = 0;
+#pragma unroll
+  for (int i = 0; i < MAXQ; ++i)
+    if (i == order[0]) first = top[i].i;
+  for (int s = 0; s < q; ++s) {
+    int o = 0;
+#pragma unroll
+    for (int i = 0; i < MAXQ; ++i)
+      if (i == s) o = order[i];
+    int row = first;
+#pragma unroll
+    for (int i = 0; i < MAXQ; ++i)
+      if (i == o && s < n_acc) row = top[i].i;
+    float d = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAXQ; ++i)
+      if (i == s) d = dv[i];
+    a.seq[s] = row;
+    a.picks[count + s] = row;
+    a.dists[count + s] = d;
+  }
+  *a.count = count + n_acc;
 }
 
 // ---- the initial min over many centers -------------------------------------
 
-constexpr int MIN_TR = 64, MIN_TC = 64, MIN_RM = 4, MIN_CM = 4;
-constexpr int MIN_THREADS = (MIN_TR / MIN_RM) * (MIN_TC / MIN_CM);  // 256
+// 32 features a tile: half the barriers of 16 per feature.
+constexpr int MT = 128, NT = 128, BK = 32, PADK = BK + 4;
+constexpr int STAGES = 2;
+constexpr int MIN_THREADS = 256;
+constexpr size_t MIN_SMEM = (size_t)STAGES * (MT + NT) * PADK * sizeof(float);
 
-__global__ void __launch_bounds__(MIN_THREADS) min_fold_kernel(
-    const float* __restrict__ f1, int d1, const float* __restrict__ f2,
-    int d2, int n, const float* __restrict__ sqn, float* __restrict__ min_dist,
-    const int64_t* __restrict__ centers, int nc) {
-  __shared__ float As[KC][MIN_TR + 1];
-  __shared__ float Bs[KC][MIN_TC + 1];
-  __shared__ float csq[MIN_TC];
-  const int row0 = blockIdx.x * MIN_TR;
-  const int tr = threadIdx.x / (MIN_TC / MIN_CM);
-  const int tc = threadIdx.x % (MIN_TC / MIN_CM);
-  float sqr[MIN_RM], run[MIN_RM];
+struct MinArgs {
+  Factor f1, f2;
+  int two, n;
+  const float* sqn;
+  float* min_dist;
+  const int64_t* centers;
+  int nc;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int sz = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(sz));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int sz = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(sz));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most STAGES - 1 groups are in flight: the oldest stage
+// has landed.
+__device__ __forceinline__ void cp_wait_stage() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1));
+}
+
+// Copy features k0..k0+BK-1 of rows row0.. (A) and of the centers crow[]
+// (B) into one stage; zeros past the matrix, the row count or nc.
+__device__ __forceinline__ void load_stage(const Factor& F, int n, int row0,
+                                           const int64_t* crow, int cvalid,
+                                           int k0, float (*As)[PADK],
+                                           float (*Bs)[PADK]) {
+  const int t = threadIdx.x;
+  if (F.vec) {
+    constexpr int V4 = BK / 4;
 #pragma unroll
-  for (int i = 0; i < MIN_RM; ++i) {
-    const int row = row0 + tr * MIN_RM + i;
-    sqr[i] = row < n ? sqn[row] : 0.f;
-    run[i] = INFINITY;
+    for (int u = 0; u < MT * V4 / MIN_THREADS; ++u) {
+      const int e = t + u * MIN_THREADS;
+      const int r = e / V4, c4 = (e % V4) * 4, k = k0 + c4;
+      const bool pa = row0 + r < n && k < F.d;
+      cp_async16(&As[r][c4],
+                 pa ? F.f + (size_t)(row0 + r) * F.d + k : F.f, pa);
+      const bool pb = r < cvalid && k < F.d;
+      cp_async16(&Bs[r][c4], pb ? F.f + (size_t)crow[r] * F.d + k : F.f, pb);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < MT * BK / MIN_THREADS; ++u) {
+      const int e = t + u * MIN_THREADS;
+      const int r = e / BK, c = e % BK, k = k0 + c;
+      const bool pa = row0 + r < n && k < F.d;
+      cp_async4(&As[r][c], pa ? F.f + (size_t)(row0 + r) * F.d + k : F.f, pa);
+      const bool pb = r < cvalid && k < F.d;
+      cp_async4(&Bs[r][c], pb ? F.f + (size_t)crow[r] * F.d + k : F.f, pb);
+    }
   }
-  for (int c0 = 0; c0 < nc; c0 += MIN_TC) {
-    if (threadIdx.x < MIN_TC)
-      csq[threadIdx.x] =
-          c0 + threadIdx.x < nc ? sqn[centers[c0 + threadIdx.x]] : 0.f;
-    float prod[MIN_RM][MIN_CM];
-    tile_products<MIN_TR, MIN_TC, MIN_RM, MIN_CM>(f1, d1, f2, d2, n, row0,
-                                                  centers, c0, nc, As, Bs,
-                                                  prod);
+}
+
+// acc[i][j] = (row tr + 16 i) . (center tc + 16 j) of the tile, each an
+// fmaf chain in ascending feature order.
+__device__ __forceinline__ void tile_dots(const Factor& F, int n, int row0,
+                                          const int64_t* crow, int cvalid,
+                                          float (*As)[MT][PADK],
+                                          float (*Bs)[NT][PADK], int tr,
+                                          int tc, float (&acc)[8][8]) {
 #pragma unroll
-    for (int j = 0; j < MIN_CM; ++j) {
-      const int c = tc * MIN_CM + j;
-      if (c0 + c < nc) {
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int i = 0; i < MIN_RM; ++i)
-          run[i] = fminf(run[i], sq_dist(sqr[i], csq[c], prod[i][j]));
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int kt_n = (F.d + BK - 1) / BK;
+  // A ring of STAGES tiles: STAGES - 1 in flight while one is read.
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < kt_n)
+      load_stage(F, n, row0, crow, cvalid, st * BK, As[st], Bs[st]);
+    cp_commit();
+  }
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int st = kt % STAGES;
+    const int ahead = kt + STAGES - 1;
+    if (ahead < kt_n)
+      load_stage(F, n, row0, crow, cvalid, ahead * BK, As[ahead % STAGES],
+                 Bs[ahead % STAGES]);
+    cp_commit();
+    cp_wait_stage();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 av[8], bv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        av[i] = *reinterpret_cast<const float4*>(&As[st][tr + 16 * i][kk]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(&Bs[st][tc + 16 * j][kk]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][j] = fma4(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+template <bool TWO>
+__global__ void __launch_bounds__(MIN_THREADS, 1) min_fold_kernel(MinArgs a) {
+  extern __shared__ float4 min_smem[];
+  auto As = reinterpret_cast<float (*)[MT][PADK]>(min_smem);
+  auto Bs = reinterpret_cast<float (*)[NT][PADK]>(
+      reinterpret_cast<float*>(min_smem) + STAGES * MT * PADK);
+  __shared__ int64_t crow[NT];
+  __shared__ float csq[NT];
+  __shared__ float rsq[MT];
+  __shared__ float red[8][4][8];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int tr = (warp >> 1) * 4 + (lane >> 3);
+  const int tc = (warp & 1) * 8 + (lane & 7);
+  const int row0 = blockIdx.x * MT;
+  if (t < MT) rsq[t] = row0 + t < a.n ? a.sqn[row0 + t] : 0.f;
+  float run[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) run[i] = INFINITY;
+  for (int c0 = 0; c0 < a.nc; c0 += NT) {
+    const int cvalid = min(NT, a.nc - c0);
+    if (t < NT) {
+      const int64_t c = t < cvalid ? a.centers[c0 + t] : 0;
+      crow[t] = c;
+      csq[t] = t < cvalid ? a.sqn[c] : 0.f;
+    }
+    __syncthreads();
+    float prod[8][8];
+    tile_dots(a.f1, a.n, row0, crow, cvalid, As, Bs, tr, tc, prod);
+    if (TWO) {
+      float acc[8][8];
+      tile_dots(a.f2, a.n, row0, crow, cvalid, As, Bs, tr, tc, acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) prod[i][j] = __fmul_rn(prod[i][j], acc[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = tc + 16 * j;
+      if (c < cvalid) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          run[i] = fminf(run[i], sq_dist(rsq[tr + 16 * i], csq[c],
+                                         prod[i][j]));
       }
     }
-    __syncthreads();  // csq is rewritten by the next tile
+    __syncthreads();  // crow and csq are rewritten by the next tile
   }
-  // The 16 threads of a row group are 16 neighbouring lanes of one warp.
+  // The 16 threads of a row: lanes with equal lane >> 3 of warps 2w, 2w+1.
 #pragma unroll
-  for (int i = 0; i < MIN_RM; ++i) {
+  for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
+    for (int o = 4; o > 0; o >>= 1)
       run[i] = fminf(run[i], __shfl_xor_sync(kFull, run[i], o));
-    const int row = row0 + tr * MIN_RM + i;
-    if (tc == 0 && row < n) min_dist[row] = fminf(min_dist[row], run[i]);
+  }
+  if ((lane & 7) == 0 && (warp & 1))
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[warp >> 1][lane >> 3][i] = run[i];
+  __syncthreads();
+  if ((lane & 7) == 0 && !(warp & 1)) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + tr + 16 * i;
+      if (row < a.n) {
+        const float m = fminf(run[i], red[warp >> 1][lane >> 3][i]);
+        a.min_dist[row] = fminf(a.min_dist[row], m);
+      }
+    }
   }
 }
 
@@ -411,61 +840,210 @@ __global__ void bits_kernel(uint32_t k0, uint32_t k1, int n,
   gumbel[i] = tf_gumbel(b);
 }
 
-inline int fold_blocks(int n) { return (n + FOLD_TR - 1) / FOLD_TR; }
+// ---- host side -------------------------------------------------------------
+
+// Rows per fold block: a multiple of the warps' row group, at most
+// FOLD_MAX_BLOCKS blocks; a function of n alone.
+inline int fold_rows_per_block(int n) {
+  int per = (n + FOLD_MAX_BLOCKS - 1) / FOLD_MAX_BLOCKS;
+  return (per + ROW_GROUP - 1) / ROW_GROUP * ROW_GROUP;
+}
+
+inline int fold_blocks(int n) {
+  const int per = fold_rows_per_block(n);
+  return (n + per - 1) / per;
+}
+
+inline Factor make_factor(const float* f, int d) {
+  Factor F;
+  F.f = f;
+  F.d = d;
+  F.chunks = f != nullptr ? (d + CHUNK - 1) / CHUNK : 0;
+  F.vec = f != nullptr && d % 4 == 0 && (reinterpret_cast<uintptr_t>(f) & 15) == 0;
+  return F;
+}
+
+inline size_t fold_smem(int nc, int d1, int d2) {
+  const size_t per = (size_t)((d1 + CHUNK - 1) / CHUNK +
+                              (d2 > 0 ? (d2 + CHUNK - 1) / CHUNK : 0)) * CHUNK;
+  return (size_t)nc * per * sizeof(float);
+}
+
+int launch_fold(FoldArgs& a, cudaStream_t stream) {
+  const size_t smem = fold_smem(a.nc, a.f1.d, a.two ? a.f2.d : 0);
+  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  static size_t opted = 48 * 1024;
+  if (smem > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    opted = SMEM_LIMIT;
+  }
+  a.rows_per_block = fold_rows_per_block(a.n);
+  fold_kernel<<<fold_blocks(a.n), FOLD_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+FoldArgs fold_args(const float* f1, int d1, const float* f2, int d2, int n,
+                   const float* sqn, float* min_dist, float* sel,
+                   const int64_t* centers, int nc) {
+  FoldArgs a = {};
+  a.f1 = make_factor(f1, d1);
+  a.f2 = make_factor(f2, d2);
+  a.two = f2 != nullptr;
+  a.n = n;
+  a.sqn = sqn;
+  a.min_dist = min_dist;
+  a.sel = sel;
+  a.centers = centers;
+  a.nc = nc;
+  return a;
+}
+
+MergeArgs merge_args(const FoldArgs& f, int mode) {
+  MergeArgs m = {};
+  m.f1 = f.f1;
+  m.f2 = f.f2;
+  m.two = f.two;
+  m.n = f.n;
+  m.sqn = f.sqn;
+  m.cand_v = f.cand_v;
+  m.cand_i = f.cand_i;
+  m.cand_p = f.cand_p;
+  m.blocks = fold_blocks(f.n);
+  m.q = f.q;
+  m.mode = mode;
+  return m;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Scratch: cand_v, cand_i of fold_blocks(n) * q entries.  centers: nc <= 8
-// int64 row indices on the device (nc may be 0: no fold).
+int kc_fold_blocks(int n) { return n < 1 ? 0 : fold_blocks(n); }
+
+// Bytes of shared memory a fold of nc centers needs; the wrappers refuse
+// more than kc_smem_limit().
+int kc_fold_smem(int nc, int d1, int d2) { return (int)fold_smem(nc, d1, d2); }
+int kc_smem_limit() { return SMEM_LIMIT; }
+
+// Scratch: cand_v, cand_i of kc_fold_blocks(n) * q entries.  centers: nc
+// <= 8 int64 row indices on the device (nc may be 0: no fold).
 int kc_fold_select(const float* f1, int d1, const float* f2, int d2, int n,
                    const float* sqn, float* min_dist, float* sel,
                    const int64_t* centers, int nc, int q, float* cand_v,
                    int* cand_i, float* out_v, int64_t* out_i,
                    cudaStream_t stream) {
-  if (nc < 0 || nc > MAXQ || q < 1 || q > MAXQ || n < 1) return cudaErrorInvalidValue;
-  const int blocks = fold_blocks(n);
-  fold_kernel<<<blocks, FOLD_TR, 0, stream>>>(f1, d1, f2, d2, n, sqn, min_dist,
-                                              sel, centers, nc, kSelect, q, 0u,
-                                              0u, cand_v, cand_i, nullptr);
-  merge_kernel<<<1, MERGE_THREADS, 0, stream>>>(cand_v, cand_i, nullptr,
-                                                blocks, q, kSelect, out_v,
-                                                out_i);
+  if (nc < 0 || nc > MAXQ || q < 1 || q > MAXQ || n < 1)
+    return (int)cudaErrorInvalidValue;
+  FoldArgs a = fold_args(f1, d1, f2, d2, n, sqn, min_dist, sel, centers, nc);
+  a.mode = kSelect;
+  a.q = q;
+  a.cand_v = cand_v;
+  a.cand_i = cand_i;
+  const int err = launch_fold(a, stream);
+  if (err != 0) return err;
+  MergeArgs m = merge_args(a, kSelect);
+  m.out_v = out_v;
+  m.out_i = out_i;
+  merge_kernel<<<1, MERGE_THREADS, 0, stream>>>(m);
   return (int)cudaGetLastError();
 }
 
-// Scratch: cand_v, cand_i, cand_p of 2 * fold_blocks(n) entries.  centers:
-// nc <= 1.  Writes the pick's row to out_i[0] and its weight to out_v[0].
+// One pass of the batched greedy.  seq: the previous pass's sequence [q]
+// (nc = 0 on the first pass, q after); count: int32 in device memory;
+// picks, dists: [budget + q]; top_v, top_i: the pass's top q (for checks);
+// scratch as kc_fold_select's.
+int kc_batch_pass(const float* f1, int d1, const float* f2, int d2, int n,
+                  const float* sqn, float* min_dist, float* sel,
+                  int64_t* seq, int nc, int q, int budget, int* count,
+                  float* cand_v, int* cand_i, int64_t* picks, float* dists,
+                  float* top_v, int64_t* top_i, cudaStream_t stream) {
+  if (nc < 0 || nc > q || q < 1 || q > MAXQ || n < 1 || budget < 1)
+    return (int)cudaErrorInvalidValue;
+  FoldArgs a = fold_args(f1, d1, f2, d2, n, sqn, min_dist, sel, seq, nc);
+  a.mode = kBatch;
+  a.q = q;
+  a.count = count;
+  a.budget = budget;
+  a.cand_v = cand_v;
+  a.cand_i = cand_i;
+  const int err = launch_fold(a, stream);
+  if (err != 0) return err;
+  MergeArgs m = merge_args(a, kBatch);
+  m.out_v = top_v;
+  m.out_i = top_i;
+  m.count = count;
+  m.budget = budget;
+  m.seq = seq;
+  m.picks = picks;
+  m.dists = dists;
+  merge_kernel<<<1, MERGE_THREADS, 0, stream>>>(m);
+  return (int)cudaGetLastError();
+}
+
+// Scratch: cand_v, cand_i, cand_p of 2 * kc_fold_blocks(n) entries.
+// centers: nc <= 1.  Writes the pick's row to out_i[0] and its weight to
+// out_v[0].
 int kc_fold_draw(const float* f1, int d1, const float* f2, int d2, int n,
                  const float* sqn, float* min_dist, float* sel,
                  const int64_t* centers, int nc, uint32_t k0, uint32_t k1,
                  float* cand_v, int* cand_i, float* cand_p, float* out_v,
                  int64_t* out_i, cudaStream_t stream) {
-  if (nc < 0 || nc > 1 || n < 1) return cudaErrorInvalidValue;
-  const int blocks = fold_blocks(n);
-  fold_kernel<<<blocks, FOLD_TR, 0, stream>>>(f1, d1, f2, d2, n, sqn, min_dist,
-                                              sel, centers, nc, kDraw, 1, k0,
-                                              k1, cand_v, cand_i, cand_p);
-  merge_kernel<<<1, MERGE_THREADS, 0, stream>>>(cand_v, cand_i, cand_p,
-                                                blocks, 1, kDraw, out_v, out_i);
+  if (nc < 0 || nc > 1 || n < 1) return (int)cudaErrorInvalidValue;
+  FoldArgs a = fold_args(f1, d1, f2, d2, n, sqn, min_dist, sel, centers, nc);
+  a.mode = kDraw;
+  a.q = 1;
+  a.k0 = k0;
+  a.k1 = k1;
+  a.cand_v = cand_v;
+  a.cand_i = cand_i;
+  a.cand_p = cand_p;
+  const int err = launch_fold(a, stream);
+  if (err != 0) return err;
+  MergeArgs m = merge_args(a, kDraw);
+  m.out_v = out_v;
+  m.out_i = out_i;
+  merge_kernel<<<1, MERGE_THREADS, 0, stream>>>(m);
   return (int)cudaGetLastError();
 }
 
 int kc_min_fold(const float* f1, int d1, const float* f2, int d2, int n,
                 const float* sqn, float* min_dist, const int64_t* centers,
                 int nc, cudaStream_t stream) {
-  if (n < 1 || nc < 1) return cudaErrorInvalidValue;
-  min_fold_kernel<<<(n + MIN_TR - 1) / MIN_TR, MIN_THREADS, 0, stream>>>(
-      f1, d1, f2, d2, n, sqn, min_dist, centers, nc);
+  if (n < 1 || nc < 1) return (int)cudaErrorInvalidValue;
+  MinArgs a;
+  a.f1 = make_factor(f1, d1);
+  a.f2 = make_factor(f2, d2);
+  a.two = f2 != nullptr;
+  a.n = n;
+  a.sqn = sqn;
+  a.min_dist = min_dist;
+  a.centers = centers;
+  a.nc = nc;
+  static bool opted = false;
+  if (!opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        min_fold_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)MIN_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(min_fold_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)MIN_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted = true;
+  }
+  const int grid = (n + MT - 1) / MT;
+  if (a.two)
+    min_fold_kernel<true><<<grid, MIN_THREADS, MIN_SMEM, stream>>>(a);
+  else
+    min_fold_kernel<false><<<grid, MIN_THREADS, MIN_SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int kc_fold_blocks(int n) { return fold_blocks(n); }
-
 int kc_random_bits(uint32_t k0, uint32_t k1, int n, uint32_t* bits,
                    float* gumbel, cudaStream_t stream) {
-  if (n < 1) return cudaErrorInvalidValue;
+  if (n < 1) return (int)cudaErrorInvalidValue;
   bits_kernel<<<(n + 255) / 256, 256, 0, stream>>>(k0, k1, n, bits, gumbel);
   return (int)cudaGetLastError();
 }

@@ -231,8 +231,6 @@ class BatchNorm(nn.Module):
     JAX package's ``FusedBatchNorm`` formula (bf16 statistics), else
     flax ``nn.BatchNorm``'s."""
 
-    momentum = 0.9
-
     def __init__(self, features: int, dtype: torch.dtype,
                  fused_stats: bool, eps: float = 1e-5):
         super().__init__()
@@ -265,13 +263,11 @@ class BatchNorm(nn.Module):
                 residual: Optional[torch.Tensor] = None,
                 relu: bool = False) -> torch.Tensor:
         if self.training:
-            y, mean, var = bn_train_lib.bn_train(
+            # Kernel C updates the running statistics in place (momentum
+            # bn_train_lib.MOMENTUM, flax's 0.9).
+            y, _, _ = bn_train_lib.bn_train(
                 x, self.scale, self.bias, self.eps, self.fused_stats,
-                residual, relu, self.group)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+                residual, relu, self.group, (self.mean, self.var))
             return y
         if torch.is_grad_enabled() and (
                 x.requires_grad or self.scale.requires_grad):

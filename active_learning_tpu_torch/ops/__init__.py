@@ -1,8 +1,10 @@
 """The port's hand-written kernels: kernel A ``prob_stats`` (CUDA),
-kernel B ``bn_act`` (Triton), kernel C ``bn_train`` (CUDA, three device
-functions), kernel D ``fused_sgd`` (CUDA), kernel E ``kcenter`` (CUDA:
-fold + top-q, fold + D² draw, initial min), kernel F ``boundary_radii``
-(CUDA: radii, pair norms), kernel G ``badge`` (CUDA), kernel H
+kernel B ``bn_act`` (Triton), kernel C ``bn_train`` (CUDA: the
+statistics and the backward reduction with their [C] chains, the N-rank
+chain, dx), kernel D ``fused_sgd`` (CUDA), kernel E ``kcenter`` (CUDA:
+fold + top-q, the batched greedy's pass with its re-check, fold + D²
+draw, initial min), kernel F ``boundary_radii`` (CUDA: radii, pair
+norms), kernel G ``badge`` (CUDA), kernel H
 ``balancing`` (CUDA: the balancing pick), kernel I ``stem_conv``
 (CUDA: the s2d stem's weight gradient) and kernel J ``int8_sync``
 (CUDA: the int8 gradient sync's block absmax, quantize, dequantizing
@@ -21,9 +23,11 @@ def kernel_launches() -> Dict[str, int]:
     return {"prob_stats": prob_stats.launches, "bn_act": bn_act.launches,
             "bn_train_stats": bn_train.stats_launches,
             "bn_train_bwd_reduce": bn_train.reduce_launches,
+            "bn_train_chain": bn_train.chain_launches,
             "bn_train_dx": bn_train.dx_launches,
             "fused_sgd": fused_sgd.launches,
             "kcenter_fold_select": kcenter.select_launches,
+            "kcenter_batch_pass": kcenter.batch_launches,
             "kcenter_fold_draw": kcenter.draw_launches,
             "kcenter_min_fold": kcenter.min_fold_launches,
             "boundary_radii": boundary_radii.radii_launches,

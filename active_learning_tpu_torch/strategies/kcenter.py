@@ -11,10 +11,11 @@ distance fold, the masked top-q and the D² draw are kernel E
 step for step:
 
 * deterministic selection runs batched: the top-q provisional picks,
-  an exact in-batch re-check on their ``[q, q]`` distance table (plain
-  torch on the device), and one fold of the accepted picks; the pick
-  sequence is the q = 1 greedy's.  Reading how many picks a batch
-  accepted is one host sync per batch;
+  an exact in-batch re-check on their ``[q, q]`` distance table, and one
+  fold of the accepted picks, all inside kernel E's ``batch_pass``; the
+  pick sequence is the q = 1 greedy's.  The pick count stays in device
+  memory, so the host reads it once per round of passes, not per pass
+  (``max_host_syncs`` bounds the rounds);
 * the randomized mode draws one pick per step with the JAX package's
   Threefry keys (``utils/threefry.py``): ``rng.integers(2**31)`` seeds
   the key before any other draw, ``split(key, budget)`` gives one key a
@@ -40,6 +41,8 @@ import torch.nn.functional as F
 
 from ..device import full_float32, resolve_device
 from ..ops import kcenter as kc
+# The JAX module's name for the re-check table's products.
+from ..ops.kcenter import dots_between  # noqa: F401
 # The JAX module's name for BADGE's pooling matrix; it lives with kernel G.
 from ..ops.badge import adaptive_avg_pool_matrix  # noqa: F401
 from ..pool import bucket_size
@@ -98,17 +101,6 @@ def dots_to_many(factors: Factors, idxs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dots_between(factors: Factors, idxs: torch.Tensor) -> torch.Tensor:
-    """g_i . g_j for i, j in idxs  — [K, K] (the re-check table)."""
-    out = None
-    with full_float32():
-        for f in factors:
-            rows = f[idxs]
-            d = rows @ rows.T
-            out = d if out is None else out * d
-    return out
-
-
 def min_sq_dist_to(factors: Factors, sqn: torch.Tensor,
                    labeled_idxs: np.ndarray,
                    chunk_size: int = MIN_CHUNK) -> torch.Tensor:
@@ -139,50 +131,17 @@ def _minimax_row(factors: Factors, sqn: torch.Tensor,
     return int(torch.argmin(row_max))
 
 
-def _recheck_candidates(cands: torch.Tensor, vals: torch.Tensor,
-                        d_cc: torch.Tensor, limit: int, sentinel: int
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Exact in-batch acceptance over the top-q candidates (``cands``,
-    ``vals`` best first, ties to the lower index; ``d_cc`` their [q, q]
-    squared distances; at most ``limit`` accepted).  Returns (candidate
-    positions in acceptance order [q], how many were accepted (a 0-d
-    tensor), each accepted pick's distance at acceptance [q]).  A
-    candidate is accepted while its updated distance exceeds the q-th
-    candidate's strictly: every row outside the batch started at or below
-    that and only shrinks, so an accepted candidate is the q = 1 greedy's
-    pick.  Min, max and compare only: no rounding."""
-    q = cands.shape[0]
-    dev = vals.device
-    thresh = vals[q - 1]
-    ninf = torch.full((), float("-inf"), device=dev)
-    cur = vals.clone()
-    accepted = torch.zeros(q, dtype=torch.bool, device=dev)
-    accepted[0] = True
-    order = torch.zeros(q, dtype=torch.int64, device=dev)
-    dvals = torch.zeros(q, dtype=vals.dtype, device=dev)
-    dvals[0] = vals[0]
-    n_acc = torch.ones((), dtype=torch.int64, device=dev)
-    last = torch.zeros((), dtype=torch.int64, device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
-    slot = torch.arange(q, device=dev)
-    sentinel_t = torch.full((), sentinel, dtype=cands.dtype, device=dev)
-    for _ in range(q - 1):
-        cur = torch.minimum(cur, d_cc[:, last])
-        avail = torch.where(accepted, ninf, cur)
-        m = avail.max()
-        # Lowest pool index among the in-batch maxima: the q = 1
-        # argmax's tie-break.
-        p = torch.argmin(torch.where(avail >= m, cands, sentinel_t))
-        # Strictly above the threshold: at equality a row outside the
-        # batch could tie and win by index, so stop and re-rank the pool.
-        ok = (m > thresh) & ~stop & (n_acc < limit)
-        accepted = accepted | ((slot == p) & ok)
-        order = torch.where(ok & (slot == n_acc), p, order)
-        dvals = torch.where(ok & (slot == n_acc), m, dvals)
-        last = torch.where(ok, p, last)
-        n_acc = n_acc + ok.to(torch.int64)
-        stop = stop | ~ok
-    return order, n_acc, dvals
+def max_host_syncs(budget: int, q: int) -> int:
+    """The most host syncs the batched scan can take for ``budget`` picks
+    at ``q`` a pass: each round queues ceil(left / q) passes, each of
+    which accepts at least one pick, so a round leaves at most left -
+    ceil(left / q).  (About 5-10 rounds in practice: a pass accepts most
+    of its q.)"""
+    left, rounds = budget, 0
+    while left > 0:
+        left -= -(-left // q)
+        rounds += 1
+    return rounds
 
 
 def _kcenter_scan(factors: Factors, sqn: torch.Tensor,
@@ -198,15 +157,16 @@ def _kcenter_scan(factors: Factors, sqn: torch.Tensor,
     picks = torch.zeros(budget, dtype=torch.int64, device=dev)
     dists = torch.zeros(budget, dtype=torch.float32, device=dev)
     no_center = torch.zeros(0, dtype=torch.int64, device=dev)
+    scratch = kc.Scratch(sqn.shape[0], dev) if dev.type == "cuda" else None
     for i in range(budget):
         center = picks[i - 1:i] if i else no_center
         if randomize:
             kc.fold_draw(factors, sqn, min_dist, selectable, center,
                          (int(keys[i, 0]), int(keys[i, 1])),
-                         dists[i:i + 1], picks[i:i + 1])
+                         dists[i:i + 1], picks[i:i + 1], scratch=scratch)
         else:
             kc.fold_select(factors, sqn, min_dist, selectable, center, 1,
-                           dists[i:i + 1], picks[i:i + 1])
+                           dists[i:i + 1], picks[i:i + 1], scratch=scratch)
     LAST_SCAN.update(pool_passes=budget, host_syncs=0)
     return picks, dists
 
@@ -215,30 +175,21 @@ def _kcenter_scan_batched(factors: Factors, sqn: torch.Tensor,
                           min_dist: torch.Tensor, selectable: torch.Tensor,
                           budget: int, q: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched deterministic greedy: each pass folds the previous batch's
-    accepted picks and ranks the pool's top q; the re-check accepts a
-    prefix of them.  Pick for pick the q = 1 scan."""
-    dev = sqn.device
-    n = sqn.shape[0]
-    picks = torch.zeros(budget + q, dtype=torch.int64, device=dev)
-    dists = torch.zeros(budget + q, dtype=torch.float32, device=dev)
-    seq = torch.zeros(0, dtype=torch.int64, device=dev)
-    count = passes = 0
-    while count < budget:
-        vals, cands = kc.fold_select(factors, sqn, min_dist, selectable,
-                                     seq, q)
-        passes += 1
-        d_cc = (sqn[cands][:, None] + sqn[cands][None, :]
-                - 2.0 * dots_between(factors, cands))
-        order, n_acc, dseq = _recheck_candidates(
-            cands, vals, d_cc, min(q, budget - count), n)
-        slot = torch.arange(q, device=dev)
-        seq = torch.where(slot < n_acc, cands[order], cands[order[0]])
-        picks[count:count + q] = seq
-        dists[count:count + q] = dseq
-        count += int(n_acc)  # the batch's host sync
-    LAST_SCAN.update(pool_passes=passes, host_syncs=passes)
-    return picks[:budget], dists[:budget]
+    """Batched deterministic greedy: each pass folds the previous pass's
+    accepted picks, ranks the pool's top q and accepts a prefix of them
+    after the exact re-check (kernel E's ``batch_pass``, which keeps the
+    pick count in device memory).  A pass accepts 1 to q picks, so
+    ceil(left / q) more passes are always needed: the host queues that
+    many, then reads the count once.  Pick for pick the q = 1 scan."""
+    state = kc.BatchState(sqn.shape[0], budget, q, sqn.device)
+    known = syncs = 0
+    while known < budget:
+        for _ in range(-(-(budget - known) // q)):
+            kc.batch_pass(factors, sqn, min_dist, selectable, state)
+        known = int(state.count[0])  # the round's host sync
+        syncs += 1
+    LAST_SCAN.update(pool_passes=state.passes, host_syncs=syncs)
+    return state.picks[:budget], state.dists[:budget]
 
 
 def _record_picks(picks: np.ndarray, dists: Optional[torch.Tensor],

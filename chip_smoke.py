@@ -33,19 +33,25 @@ phase fails:
    both training paths below: kernel B in bf16 at every BatchNorm shape
    of each path's training forward (coefficients from the batch's own
    statistics) and of its evaluation batch; kernel C (``ops/bn_train``,
-   CUDA: statistics, backward reduction, dx) at every BatchNorm shape of
-   the SSLResNet50 training step at B=128, 224x224, bf16 (f32 on the
-   shapes with C >= 1024) and of the CLI's SSLResNet18 (CIFAR stem)
-   training step, bf16, with two launches bit-equal; kernel D
+   CUDA: statistics and the masked backward reduction, each with its
+   per-channel chain, the N-rank chains, dx with the residual's
+   gradient) at every BatchNorm call (shape, residual, ReLU) of the
+   SSLResNet50 training step at B=128, 224x224, bf16 (f32 on the shapes
+   with C >= 1024) and of the CLI's SSLResNet18 (CIFAR stem) training
+   step, bf16: sums within their tolerance, the chains within
+   BN_CHAIN_ULPS (0) of PyTorch's ops from the same sums, dx bit-equal,
+   two launches bit-equal; kernel D
    (``ops/fused_sgd``, CUDA) on every leaf of both paths' models with
    their arg pools' lr and weight decay and on odd leaves (views at
    storage offsets 0-3 of 1, 3, 4, 4097 and 40,000 elements, some grads
    never aligned with their params), bit-equal at f32 state, within
    1 bf16 ulp at bf16 state.  Kernel C is timed beside its plain
-   version, its bound and ``F.batch_norm(training=True)`` forward +
-   backward; the port's whole BatchNorm forward + backward (kernels C
-   and B, the ReLU mask) beside ``F.batch_norm`` with the same residual
-   add and ReLU.  Kernel D's device time (torch.profiler kernel events)
+   version (CUDA events, and its device time by the profiler), its
+   bound and ``F.batch_norm(training=True)`` forward + backward; the
+   port's whole BatchNorm forward + backward (kernels C and B) beside
+   ``F.batch_norm`` with the same residual add and ReLU, and the
+   kernels one BatchNorm launches forward and backward (at most 3
+   each, or the run fails).  Kernel D's device time (torch.profiler kernel events)
    and host time per call (``perf_counter``) beside
    ``torch.optim.SGD(fused=True).step()``'s, its bound and its plain
    version; the CUDA-event mean over a loop of calls is kept beside
@@ -63,7 +69,9 @@ phase fails:
    against the CPU from the same numpy-seeded weights (TF32 off).
 7. The geometry samplers' kernels against their plain versions at the
    main path's shapes: kernel E (``ops/kcenter``, CUDA: fold + top-q,
-   fold + D² draw, initial min) on one factor [13,000, 2048] and the
+   the batched pass with its re-check, whose accepted picks must equal
+   the q = 1 kernel scan's bit for bit, fold + D² draw, initial min) on
+   one factor [13,000, 2048] and the
    pooled BADGE factors [13,000, 16] + [13,000, 32] (a partition of the
    ImageNet sweep) and on [131,072, 2048] (its whole pool, bucketed),
    with the Threefry bits bit-equal; kernel F (``ops/boundary_radii``,
@@ -81,9 +89,11 @@ phase fails:
    float32 factors, 50,000 labeled, budget 10,000 — unpartitioned
    (q = 8), 10 partitions of 13,000 rows (1,000 picks each), and the
    partitions randomized over pooled BADGE factors; wall time, pool
-   passes and host syncs of each, peak device memory, and the picks
-   held against the plain version (the whole unpartitioned run,
-   partition 0 of the others).
+   passes and host syncs of each (at most ``max_host_syncs``), peak
+   device memory, the batched picks and distances held bit for bit to
+   the q = 1 kernel scan's (the whole unpartitioned run, partition 0),
+   and the picks held against the plain version (the whole
+   unpartitioned run, partition 0 of the others).
 10. The CLI on the card with BASESampler, PartitionedCoresetSampler and
     PartitionedBADGESampler (--partitions 2; SSLResNet18, synthetic, 2
     rounds).
@@ -696,64 +706,116 @@ def _bf16_ulp_of(v: torch.Tensor, dtype) -> torch.Tensor:
     return _bf16_ulp(v)
 
 
+# Kernel C's chains on the card against their plain versions (PyTorch ops
+# on the card) from the same sums: 0 ulp (separately rounded float32 ops
+# in the plain order, rsqrtf as PyTorch's CUDA rsqrt, a division by a
+# Python number as a multiply by its float32 reciprocal).
+BN_CHAIN_ULPS = 0
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    ia = a.detach().contiguous().view(torch.int32).long()
+    ib = b.detach().contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def _hold_bn_chain(got, want, what):
+    worst = max(_ulps(a, b) for a, b in zip(got, want))
+    if worst > BN_CHAIN_ULPS:
+        raise AssertionError(f"bn_train {what}: the chain is {worst} ulp "
+                             f"from the plain version's (bound "
+                             f"{BN_CHAIN_ULPS})")
+    return worst
+
+
 def check_bn_train(dev, calls, detail, path="fit"):
-    """Kernel C at every BatchNorm shape of the step.  Tolerances: the
+    """Kernel C at every BatchNorm call (shape, residual, ReLU) of the
+    step, fused formula (and flax's in f32 at C >= 1024).  Tolerances: the
     four per-channel sums are float32 sums of the same terms in another
     order, within 1e-5 of the sum of the terms' magnitudes (per row count
-    for the means); dx from the same coefficients is bit-equal (the same
-    separately rounded operations); dx end to end (each side from its
-    own sums) differs only through the coefficients, so within
-    |gy|·|Δmul| + |x|·|Δc2| + |Δc1|, plus 2^-22 of |gy·mul| + |x·c2| +
-    |c1| (each side's float32 rounding, which shows where the terms
-    cancel), plus one ulp of the activation dtype.  Two launches on the
-    same input are bit-equal."""
+    for the means); the forward chain (variance, kernel B's coefficients,
+    running statistics) and the backward chain from the same sums within
+    BN_CHAIN_ULPS; dx and the masked gy from the same coefficients
+    bit-equal (the same separately rounded operations); dx end to end
+    (each side from its own sums) differs only through the coefficients,
+    so within |gy|·|Δmul| + |x|·|Δc2| + |Δc1|, plus 2^-22 of |gy·mul| +
+    |x·c2| + |c1| (each side's float32 rounding, which shows where the
+    terms cancel), plus one ulp of the activation dtype.  Two launches
+    on the same input are bit-equal."""
     from active_learning_tpu_torch.ops import bn_train as bt
 
     worst = 0.0
-    shapes = sorted({s for s, _, _ in calls})
+    variants = sorted(set(calls))
     dims = (0, 2, 3)
-    for i, shape in enumerate(shapes):
+    for i, (shape, has_res, relu) in enumerate(variants):
         dtypes = [torch.bfloat16] + ([torch.float32]
                                      if shape[1] >= 1024 else [])
         for dtype in dtypes:
+            fused = dtype == torch.bfloat16
             x, gy, scale = _kernel_c_inputs(shape, dtype, dev, i)
+            y = (torch.relu(x.float() * 0.7 - 0.2).to(dtype).contiguous(
+                memory_format=torch.channels_last) if relu else None)
+            bias = torch.randn(shape[1], device=dev) * 0.1
             n = shape[0] * shape[2] * shape[3]
             inv = float(np.float32(1.0) / np.float32(n))
-            mean, mean2 = bt.bn_stats(x)
-            s1, s2 = bt.bn_bwd_reduce(gy, x)
-            again = bt.bn_stats(x) + bt.bn_bwd_reduce(gy, x)
+            running = (torch.randn(shape[1], device=dev),
+                       torch.rand(shape[1], device=dev) + 0.5)
+            ra = tuple(r.clone() for r in running)
+            mean, mean2, var, coeffs = bt.bn_forward_stats(
+                x, scale, bias, 1e-5, fused, running)
+            sums, dscale_l, dbias_l = bt.bn_backward_local(
+                gy, x, y, scale, mean, mean2, 1e-5, fused)
+            full = bt.bn_backward(gy, x, y, scale, mean, mean2, 1e-5, fused)
+            again = bt.bn_forward_stats(x, scale, bias, 1e-5, fused)[:3] + \
+                bt.bn_backward(gy, x, y, scale, mean, mean2, 1e-5, fused)
             rm, rm2 = bt.channel_sums_reference(x, x, inv)
-            rs1, rs2 = bt.channel_sums_reference(gy, x)
-            xf, gf = x.float(), gy.float()
+            gm = bt.relu_mask_reference(gy, y)
+            rs1, rs2 = bt.channel_sums_reference(gm, x)
+            xf, gf = x.float(), gm.float()
             errs = {}
             for name, got, ref, mag in (
                     ("mean", mean, rm, xf.abs().sum(dims) * inv),
                     ("mean2", mean2, rm2, (xf * xf).sum(dims) * inv),
-                    ("sum_gy", s1, rs1, gf.abs().sum(dims)),
-                    ("sum_gy_x", s2, rs2, (gf * xf).abs().sum(dims))):
+                    ("sum_gy", sums[0], rs1, gf.abs().sum(dims)),
+                    ("sum_gy_x", sums[1], rs2, (gf * xf).abs().sum(dims))):
                 diff = (got - ref).abs()
                 if bool((diff > 1e-5 * mag + 1e-30).any()):
                     raise AssertionError(f"bn_train {name} {shape} {dtype}:"
                                          f" max diff {diff.max().item()}")
                 errs[name] = diff.max().item()
-            for a, b in zip(again, (mean, mean2, s1, s2)):
+            for a, b in zip(again, (mean, mean2, var) + tuple(full)):
                 if not torch.equal(a, b):
                     raise AssertionError(f"bn_train {shape} {dtype}: two "
                                          "launches differ")
-            coef_k = bt.backward_coefficients(s1, s2, scale, mean, mean2,
-                                              1e-5, float(n), dtype, True)
-            coef_p = bt.backward_coefficients(rs1, rs2, scale, rm, rm2,
-                                              1e-5, float(n), dtype, True)
-            dx_same = bt.bn_dx(gy, x, *coef_p[2:])
-            if not torch.equal(dx_same,
-                               bt.bn_dx_reference(gy, x, *coef_p[2:])):
+            p_var, p_coeffs = bt.forward_chain_reference(
+                mean, mean2, scale, bias, 1e-5, dtype, fused, ra)
+            p_full = bt.backward_coefficients(sums[0], sums[1], scale, mean,
+                                              mean2, 1e-5, float(n), dtype,
+                                              fused)
+            chain_mul = bt.bn_backward_chain(sums, float(n), scale, mean,
+                                             mean2, 1e-5, dtype, fused)
+            errs["chain_ulps"] = max(
+                _hold_bn_chain((var, *coeffs, *running),
+                               (p_var, *p_coeffs, *ra),
+                               f"forward {shape} {dtype}"),
+                _hold_bn_chain(full, p_full, f"backward {shape} {dtype}"),
+                _hold_bn_chain((dscale_l, dbias_l, *chain_mul), p_full,
+                               f"N-rank backward {shape} {dtype}"))
+            dx_same, gres = bt.bn_dx(gy, x, y, *p_full[2:], True)
+            if not (torch.equal(dx_same,
+                                bt.bn_dx_reference(gy, x, y, *p_full[2:]))
+                    and torch.equal(gres, gm)):
                 raise AssertionError(f"bn_dx {shape} {dtype}: not bit-equal"
                                      " from the same coefficients")
-            dx_k = bt.bn_dx(gy, x, *coef_k[2:]).float()
-            dx_p = dx_same.float()
+            p_coef = bt.backward_reference(gy, x, y, scale, rm, rm2, 1e-5,
+                                           fused)
+            dx_k = bt.bn_dx(gy, x, y, *full[2:]).float()
+            dx_p = bt.bn_dx_reference(gy, x, y, *p_coef[2:]).float()
             dm, dc2, dc1 = ((a - b).abs().view(1, -1, 1, 1)
-                            for a, b in zip(coef_k[2:], coef_p[2:]))
-            m, k2, k1 = (v.view(1, -1, 1, 1) for v in coef_p[2:])
+                            for a, b in zip(full[2:], p_coef[2:]))
+            m, k2, k1 = (v.view(1, -1, 1, 1) for v in p_coef[2:])
             terms = (gf * m).abs() + (xf * k2).abs() + k1.abs()
             tol = (gf.abs() * dm + xf.abs() * dc2 + dc1
                    + 2.0 ** -22 * terms
@@ -761,106 +823,167 @@ def check_bn_train(dev, calls, detail, path="fit"):
                                   dtype))
             diff = (dx_k - dx_p).abs()
             if bool((diff > tol).any()):
-                i = int(torch.argmax(diff - tol))
-                worst = [t.reshape(-1)[i].item()
-                         for t in (dx_k, dx_p, gf, xf, tol)]
+                j = int(torch.argmax(diff - tol))
+                w = [t.reshape(-1)[j].item()
+                     for t in (dx_k, dx_p, gf, xf, tol)]
                 raise AssertionError(
                     f"bn_train dx {shape} {dtype}: max diff "
                     f"{diff.max().item()}; worst element (dx kernel, dx "
-                    f"plain, gy, x, tolerance) {worst}")
+                    f"plain, gy, x, tolerance) {w}")
             errs["dx"] = diff.max().item()
             worst = max(worst, errs["dx"])
             detail.append({"kernel": "bn_train", "path": path,
-                           "shape": list(shape), "dtype": str(dtype), **errs})
-            del x, gy, xf, gf, dx_k, dx_p, dx_same, tol, diff
+                           "shape": list(shape), "residual": has_res,
+                           "relu": relu, "dtype": str(dtype), **errs})
+            del x, gy, y, xf, gf, dx_k, dx_p, dx_same, gres, tol, diff
             torch.cuda.empty_cache()
     return worst
 
 
+def bn_train_bytes(shape, has_res, relu, elem=BF16_BYTES):
+    """The bytes kernel C must move for one BatchNorm of a train step:
+    the statistics read x; the masked reduction reads gy, x and (with a
+    ReLU) y; dx reads gy, x and y and writes dx and, with a residual
+    behind the ReLU, the masked gy; plus the [C] vectors (scale, bias,
+    running statistics read and written, the chains' outputs)."""
+    c = shape[1]
+    act = shape[0] * shape[1] * shape[2] * shape[3] * elem
+    passes = 1 + (2 + relu) + (3 + relu + (has_res and relu))
+    return act * passes + 24 * c * 4
+
+
+def _launches_per_call(fn, reps: int = 4):
+    """Kernels one call of ``fn`` ran on the card, by the profiler's
+    count.  Only a complete reading counts (``reps`` calls record
+    ``reps`` times one call's kernels, and one call records some): the
+    profiler loses a session's events now and then; such a
+    reading is taken again, up to three times, then this fails."""
+    seen = []
+    for _ in range(3):
+        one = sum(c for c, _ in _kernel_events(fn, 1).values())
+        many = sum(c for c, _ in _kernel_events(fn, reps).values())
+        if one and many == reps * one:
+            return one
+        seen.append((one, many))
+    raise AssertionError(f"the profiler lost kernel events in every "
+                         f"session (one call, {reps} calls): {seen}")
+
+
 def time_bn_train(dev, calls, detail):
-    """Over all BatchNorm calls of one bf16 training step: device time of
-    kernel C (statistics + backward reduction + dx per call), its plain
-    version, its bound, and ``F.batch_norm(training=True)`` forward +
-    backward on the same shapes (the library call: the same function
-    plus the normalize pass).  Like for like with the library, also the
-    port's whole BatchNorm as the model runs it (``bn_train`` forward +
-    backward: kernel C, kernel B's normalize with the call's residual
-    and ReLU, the ReLU mask and the per-channel math) beside
+    """Over all BatchNorm calls of one bf16 training step, each with its
+    residual and ReLU: device time of kernel C (forward statistics with
+    their chain, backward reduction with its chain, dx; CUDA events), its
+    plain version, its restated bound (``bn_train_bytes``), and
+    ``F.batch_norm(training=True)`` forward + backward on the same shapes
+    (the library call: the same function plus the normalize pass).  Like
+    for like with the library, also the port's whole BatchNorm as the
+    model runs it (``bn_train`` forward + backward: kernel C and kernel
+    B's normalize with the call's residual and ReLU) beside
     ``F.batch_norm`` with the same residual add and ReLU, forward +
-    backward."""
+    backward; and the kernels one forward and one backward of it
+    launch."""
     import torch.nn.functional as F
 
     from active_learning_tpu_torch.ops import bn_train as bt
 
-    per, whole = {}, {}
-    for shape in sorted({s for s, _, _ in calls}):
+    per, whole, launches = {}, {}, {}
+    for key in sorted(set(calls)):
+        shape, has_res, relu = key
         x, gy, scale = _kernel_c_inputs(shape, torch.bfloat16, dev, 7)
         c = shape[1]
-        n = shape[0] * shape[2] * shape[3]
-        mul, c2, c1 = (torch.rand(c, device=dev) for _ in range(3))
+        y = (torch.relu(x.float() - 1.0).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last) if relu else None)
+        bias = torch.zeros(c, device=dev)
+        running = (torch.zeros(c, device=dev), torch.ones(c, device=dev))
+        mean, mean2, _, _ = bt.bn_forward_stats(x, scale, bias, 1e-5, True)
+        inv = float(np.float32(1.0) / np.float32(x.numel() // c))
 
         def kernel():
-            bt.bn_stats(x)
-            bt.bn_bwd_reduce(gy, x)
-            bt.bn_dx(gy, x, mul, c2, c1)
+            bt.bn_forward_stats(x, scale, bias, 1e-5, True, running)
+            _, _, mul, c2, c1 = bt.bn_backward(gy, x, y, scale, mean, mean2,
+                                               1e-5, True)
+            bt.bn_dx(gy, x, y, mul, c2, c1, has_res)
 
         def plain():
-            bt.channel_sums_reference(x, x, 1.0 / n)
-            bt.channel_sums_reference(gy, x)
-            bt.bn_dx_reference(gy, x, mul, c2, c1)
+            m, m2 = bt.channel_sums_reference(x, x, inv)
+            bt.forward_chain_reference(m, m2, scale, bias, 1e-5,
+                                       torch.bfloat16, True, running)
+            _, _, mul, c2, c1 = bt.backward_reference(gy, x, y, scale, mean,
+                                                      mean2, 1e-5, True)
+            bt.bn_dx_reference(gy, x, y, mul, c2, c1)
+            if has_res:
+                bt.relu_mask_reference(gy, y)
 
         xg = x.detach().requires_grad_(True)
         w = scale.detach().requires_grad_(True)
         b = torch.zeros(c, device=dev, requires_grad=True)
         rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        res = (torch.randn_like(xg).requires_grad_(True) if has_res
+               else None)
+        wrt = (xg, w, b) + (() if res is None else (res,))
 
-        def library(res=None, relu=False):
-            y = F.batch_norm(xg, rm, rv, w, b, training=True, momentum=0.1,
-                             eps=1e-5)
+        def library(res=res, relu=relu):
+            y_ = F.batch_norm(xg, rm, rv, w, b, training=True, momentum=0.1,
+                              eps=1e-5)
             if res is not None:
-                y = y + res
+                y_ = y_ + res
             if relu:
-                y = F.relu(y)
-            torch.autograd.grad(y, (xg, w, b) + (
-                () if res is None else (res,)), gy)
+                y_ = F.relu(y_)
+            torch.autograd.grad(y_, wrt, gy)
 
-        def port(res=None, relu=False):
-            y, _, _ = bt.bn_train(xg, w, b, 1e-5, True, res, relu)
-            torch.autograd.grad(y, (xg, w, b) + (
-                () if res is None else (res,)), gy)
+        def port_fwd():
+            return bt.bn_train(xg, w, b, 1e-5, True, res, relu, None,
+                               running)[0]
+
+        def port():
+            torch.autograd.grad(port_fwd(), wrt, gy)
 
         ms = cuda_ms(kernel, reps=20)
+        # The kernels' own device time: at the small shapes the event
+        # loop runs at the wrappers' host pace.  No floor: a call's
+        # inputs under 50 MB stay in L2 across the loop.
+        dev_ms = profiled_device_ms(kernel, 0.0, reps=10)[0]
         plain_ms = cuda_ms(plain, reps=5)
         lib_ms = cuda_ms(library, reps=20)
-        # x read (stats), gy and x read (reduce), gy and x read and dx
-        # written (dx): 6 activation-sized passes, plus [C] coefficients.
-        nbytes = x.numel() * BF16_BYTES * 6 + 10 * c * 4
-        per[shape] = (ms, plain_ms, lib_ms, nbytes)
+        nbytes = bn_train_bytes(shape, has_res, relu)
+        with torch.no_grad():
+            n_fwd = _launches_per_call(port_fwd)
+        n_all = _launches_per_call(port)
+        launches[key] = (n_fwd, n_all - n_fwd)
+        per[key] = (ms, plain_ms, lib_ms, nbytes, dev_ms)
+        whole[key] = (cuda_ms(port, reps=20), cuda_ms(library, reps=20))
         detail.append({"kernel": "bn_train", "timed_shape": list(shape),
-                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "residual": has_res, "relu": relu,
+                       "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms,
                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                       "calls_per_step": sum(1 for s, _, _ in calls
-                                             if s == shape)})
-        for has_res, relu in sorted({(r, a) for s, r, a in calls
-                                     if s == shape}):
-            res = (torch.randn_like(xg).requires_grad_(True) if has_res
-                   else None)
-            whole[(shape, has_res, relu)] = (
-                cuda_ms(lambda: port(res, relu), reps=20),
-                cuda_ms(lambda: library(res, relu), reps=20))
-            detail.append({"bn_path": "bn_train fwd+bwd",
-                           "timed_shape": list(shape), "residual": has_res,
-                           "relu": relu,
-                           "ms": whole[(shape, has_res, relu)][0],
-                           "library_ms": whole[(shape, has_res, relu)][1]})
-            del res
-        del x, gy, xg
+                       "launches_forward": n_fwd,
+                       "launches_backward": n_all - n_fwd,
+                       "bn_path_ms": whole[key][0],
+                       "bn_path_library_ms": whole[key][1],
+                       "calls_per_step": calls.count(key)})
+        del x, gy, y, xg, res
         torch.cuda.empty_cache()
-    tot = [sum(per[s][i] for s, _, _ in calls) for i in range(4)]
+    tot = [sum(per[k][i] for k in calls) for i in range(5)]
     path = [sum(whole[k][i] for k in calls) for i in range(2)]
+    fwd = max(v[0] for v in launches.values())
+    bwd = max(v[1] for v in launches.values())
+    if fwd > 3 or bwd > 3:
+        raise AssertionError(f"a BatchNorm launched {fwd} kernels forward "
+                             f"and {bwd} backward (at most 3 each): "
+                             f"{launches}")
+    log(f"kernel C per B=128 step ({len(calls)} calls): {tot[0]:.3f} ms "
+        f"(device {tot[4]:.3f} ms by the profiler; plain {tot[1]:.3f}, "
+        f"F.batch_norm fwd+bwd {tot[2]:.3f}, bound "
+        f"{tot[3] / HBM_BYTES_PER_S * 1e3:.3f}); the whole BatchNorm "
+        f"{path[0]:.3f} ms against F.batch_norm + residual + ReLU "
+        f"{path[1]:.3f}; launches per BatchNorm: forward <= {fwd}, "
+        f"backward <= {bwd}")
     return {"ms": tot[0], "plain_ms": tot[1], "library_ms": tot[2],
             "bound_ms": tot[3] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bn_path_ms": path[0], "bn_path_library_ms": path[1]}
+            "device_ms": tot[4], "bn_path_ms": path[0],
+            "bn_path_library_ms": path[1],
+            "launches_per_bn_forward": fwd, "launches_per_bn_backward": bwd}
 
 
 def _sgd_leaves(dev, state_dtype, seed, dataset="imagenet",
@@ -1123,7 +1246,7 @@ def run_fit_path(dev, steps_profiled: int = 5, model_name="SSLResNet50",
     launches = ops.kernel_launches()
     steps = 2 * -(-len(train_set) // bs)
     want = {"bn_train_stats": n_bn * steps,
-            "bn_train_bwd_reduce": n_bn * steps,
+            "bn_train_bwd_reduce": n_bn * steps, "bn_train_chain": 0,
             "bn_train_dx": n_bn * steps, "fused_sgd": steps}
     if any(launches[k] != v for k, v in want.items()) or \
             launches["bn_act"] < n_bn * steps:
@@ -1414,6 +1537,88 @@ def _check_min_fold(factors, sqn, centers, where, detail, path="select"):
     return err.max().item()
 
 
+def _check_batch_pass(factors, sqn, md0, sel0, state0, where, detail,
+                      path="select"):
+    """One pass of kernel E's batched greedy from (``md0``, ``sel0``,
+    ``state0``) against its plain version: min_dist within
+    kc.fold_tolerance, selectable equal; the kernel's top q exactly the
+    top q of its own min_dist; its accepted picks and their distances
+    bit-equal to the q = 1 kernel scan's from the same state (the
+    re-check's [q, q] distances are the fold's own numbers); and where a
+    pick differs from the plain pass's, the two rows' distances within
+    twice the tolerance.  Returns the max abs error of min_dist."""
+    from active_learning_tpu_torch.ops import kcenter as kc
+
+    dev = sqn.device
+    centers = state0.seq if state0.passes else state0.seq[:0]
+    nc = centers.numel()
+    depth = sum(f.shape[1] for f in factors)
+    c_max = float(sqn[centers].max()) if centers.numel() else 0.0
+    tol = kc.fold_tolerance(sqn, c_max, depth)
+    md_k, sel_k, st_k = md0.clone(), sel0.clone(), state0.clone()
+    md_p, sel_p, st_p = md0.clone(), sel0.clone(), state0.clone()
+    kc.batch_pass(factors, sqn, md_k, sel_k, st_k)
+    kc.batch_pass_reference(factors, sqn, md_p, sel_p, st_p)
+    torch.cuda.synchronize()
+    err = (md_k - md_p).abs()
+    if not torch.equal(sel_k, sel_p) or bool((err > tol).any()):
+        raise AssertionError(f"kcenter batch pass at {where}: max err "
+                             f"{err.max().item()} against tolerance "
+                             f"{tol.max().item()}")
+    q = state0.q
+    own_v, own_i = kc.top_q(torch.where(
+        sel_k > 0, md_k, torch.full_like(md_k, float("-inf"))), q)
+    if not (torch.equal(st_k.top_v, own_v) and torch.equal(st_k.top_i,
+                                                           own_i)):
+        raise AssertionError(f"kcenter batch pass at {where}: the top {q} "
+                             "is not the top q of the kernel's own distances")
+    c0 = int(state0.count[0])
+    n_acc = int(st_k.count[0]) - c0
+    md_1, sel_1 = md0.clone(), sel0.clone()
+    v1 = torch.zeros(1, device=dev)
+    i1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    for step in range(n_acc):
+        kc.fold_select(factors, sqn, md_1, sel_1, centers, 1, v1, i1)
+        if int(i1) != int(st_k.picks[c0 + step]) or \
+                v1.view(torch.int32) != st_k.dists[c0 + step:c0 + step + 1] \
+                .view(torch.int32):
+            raise AssertionError(
+                f"kcenter batch pass at {where}: accepted pick {step} is row "
+                f"{int(st_k.picks[c0 + step])} at "
+                f"{float(st_k.dists[c0 + step])}, the q = 1 scan's row "
+                f"{int(i1)} at {float(v1)}")
+        centers = i1.clone()
+    got = st_k.picks[c0:c0 + n_acc].tolist()
+    want = st_p.picks[c0:c0 + int(st_p.count[0]) - c0].tolist()
+    differ = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                  None)
+    if differ is not None:
+        gap = abs(float(md_p[got[differ]]) - float(md_p[want[differ]]))
+        log(f"kcenter batch pass at {where}: pick {differ} kernel row "
+            f"{got[differ]}, plain row {want[differ]}, distance gap "
+            f"{gap:.3g} (bound {2 * tol.max().item():.3g})")
+        if gap > 2 * tol.max().item():
+            raise AssertionError("kcenter batch pick differs beyond the "
+                                 "bound")
+    detail.append({"kernel": "kcenter_batch_pass", "path": path,
+                   "where": where, "q": q, "nc": nc,
+                   "accepted": n_acc, "plain_accepted": len(want),
+                   "max_abs_err": err.max().item(),
+                   "tolerance_max": tol.max().item(),
+                   "first_difference": differ})
+    return err.max().item()
+
+
+def _kc_pass_bound(n, dims, q, blocks):
+    """The least time of one batched pass: the factor rows, sqn, min_dist
+    (read and written) and selectable read once, the blocks' candidates
+    written and read, and the merge's reads of the q candidate rows;
+    2 q flops an element."""
+    d = sum(dims)
+    nbytes = n * (d + 4) * 4.0 + 2 * blocks * q * 8.0 + q * d * 4.0
+    return _bound(nbytes, 2.0 * q * n * d)
+
+
 def _check_fold_draw(factors, sqn, md0, sel0, steps, seed, where, detail,
                      path="select"):
     """Kernel E's D² draw: Threefry bits bit-equal to utils/threefry,
@@ -1476,6 +1681,14 @@ def check_kcenter(dev, detail):
         for q in (1, 8):
             err = max(err, _check_fold_select(factors, sqn, md0, sel0,
                                               rest[:q], q, where, detail))
+        state = kc.BatchState(n, 10000, 8, dev)
+        err = max(err, _check_batch_pass(factors, sqn, md0, sel0, state,
+                                         where + " pass 1", detail))
+        md1, sel1 = md0.clone(), sel0.clone()
+        kc.batch_pass(factors, sqn, md1, sel1, state)
+        err = max(err, _check_batch_pass(factors, sqn, md1, sel1, state,
+                                         where + " pass 2", detail))
+        del md1, sel1, state
         err = max(err, _check_min_fold(factors, sqn, labeled[:1024], where,
                                        detail))
         if n == 13000:
@@ -1489,10 +1702,14 @@ def check_kcenter(dev, detail):
     n, d, q = 131072, 2048, 8
     factors, sqn, md, sel, labeled, rest = _kc_pool(dev, n, (d,), 7, 50000)
     centers = rest[:q].clone()
-    ms = cuda_ms(lambda: kc.fold_select(factors, sqn, md, sel, centers, q),
+    state = kc.BatchState(n, 10000, q, dev)
+    kc.batch_pass(factors, sqn, md, sel, state)  # passes fold q centers now
+    ms = cuda_ms(lambda: kc.batch_pass(factors, sqn, md, sel, state),
                  reps=20)
-    plain = cuda_ms(lambda: kc.fold_select_reference(factors, sqn, md, sel,
-                                                     centers, q), reps=5)
+    plain = cuda_ms(lambda: kc.batch_pass_reference(factors, sqn, md, sel,
+                                                    state), reps=5)
+    if int(state.count[0]) >= state.budget:
+        raise AssertionError("kcenter timing: the state ran out of budget")
     x = factors[0]
     ninf = torch.full_like(md, float("-inf"))
 
@@ -1505,16 +1722,19 @@ def check_kcenter(dev, detail):
     with full_float32():
         lib = cuda_ms(library, reps=20)
     times = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-             **_bound(n * (d + 4) * 4.0, 2.0 * q * n * d)}
+             **_kc_pass_bound(n, (d,), q, state.scratch.p.numel() // 2)}
     chunk = labeled[:1024].clone()
+    mf_ms = cuda_ms(lambda: kc.min_fold(factors, sqn, md, chunk), reps=5)
+    mf_bound = _bound(n * (d + 2) * 4.0, 2.0 * 1024 * n * d)
     extra = {
-        "min_fold_1024_ms": cuda_ms(lambda: kc.min_fold(
-            factors, sqn, md, chunk), reps=5),
+        "fold_select_q8_ms": cuda_ms(lambda: kc.fold_select(
+            factors, sqn, md, sel, centers, q), reps=20),
+        "min_fold_1024_ms": mf_ms,
         "min_fold_1024_plain_ms": cuda_ms(lambda: kc.fold_reference(
             factors, sqn, md, chunk), reps=5),
-        "min_fold_1024_bound": _bound(n * (d + 2) * 4.0,
-                                      2.0 * 1024 * n * d)}
-    del factors, sqn, md, sel, x
+        "min_fold_1024_bound": mf_bound,
+        "min_fold_1024_peak_share": mf_bound["bound_ms"] / mf_ms}
+    del factors, sqn, md, sel, x, state
     torch.cuda.empty_cache()
     a_f, sqn, md, sel, _, _ = _kc_pool(dev, 13000, (16, 32), 8, 5000)
     out_v = torch.zeros(1, device=dev)
@@ -1528,8 +1748,8 @@ def check_kcenter(dev, detail):
     del a_f, sqn, md, sel
     torch.cuda.empty_cache()
     detail.append({"kernel": "kcenter", "timings": {**times, **extra}})
-    log(f"kernel E at N={n} D={d} q={q}: {ms:.3f} ms (plain {plain:.3f}, "
-        f"library {lib:.3f}, bound {times['bound_ms']:.3f} by "
+    log(f"kernel E's batched pass at N={n} D={d} q={q}: {ms:.4f} ms (plain "
+        f"{plain:.3f}, library {lib:.4f}, bound {times['bound_ms']:.4f} by "
         f"{times['bound_by']}); {extra}")
     return err, times
 
@@ -1674,7 +1894,7 @@ QUERY_SAMPLERS = (("MASESampler", {}), ("BASESampler", {}),
 QUERY_KERNELS = {
     "MASESampler": ("boundary_radii", "head_pair_norms", "bn_act"),
     "BASESampler": ("boundary_radii", "head_pair_norms", "bn_act"),
-    "PartitionedCoresetSampler": ("kcenter_fold_select", "kcenter_min_fold",
+    "PartitionedCoresetSampler": ("kcenter_batch_pass", "kcenter_min_fold",
                                   "bn_act"),
     "PartitionedBADGESampler": ("badge_factors", "kcenter_fold_draw",
                                 "kcenter_min_fold", "bn_act")}
@@ -1796,7 +2016,7 @@ def _plain_kcenter():
     from active_learning_tpu_torch.ops import kcenter as kc
 
     def fold_select(factors, sqn, min_dist, selectable, centers, q,
-                    out_vals=None, out_idx=None):
+                    out_vals=None, out_idx=None, scratch=None):
         vals, idx = kc.fold_select_reference(factors, sqn, min_dist,
                                              selectable, centers, q)
         if out_vals is None:
@@ -1805,8 +2025,12 @@ def _plain_kcenter():
         out_idx.copy_(idx)
         return out_vals, out_idx
 
+    def batch_pass(factors, sqn, min_dist, selectable, state):
+        kc.batch_pass_reference(factors, sqn, min_dist, selectable, state)
+        state.passes += 1
+
     def fold_draw(factors, sqn, min_dist, selectable, centers, key, out_val,
-                  out_idx):
+                  out_idx, scratch=None):
         val, idx = kc.fold_draw_reference(factors, sqn, min_dist, selectable,
                                           centers, key)
         out_val.copy_(val.reshape(1))
@@ -1814,13 +2038,16 @@ def _plain_kcenter():
 
     @contextlib.contextmanager
     def swapped():
-        saved = (kc.fold_select, kc.fold_draw, kc.min_fold)
-        kc.fold_select, kc.fold_draw, kc.min_fold = (
-            fold_select, fold_draw, kc.fold_reference)
+        names = ("fold_select", "batch_pass", "fold_draw", "min_fold")
+        saved = [getattr(kc, k) for k in names]
+        for k, fn in zip(names, (fold_select, batch_pass, fold_draw,
+                                 kc.fold_reference)):
+            setattr(kc, k, fn)
         try:
             yield
         finally:
-            kc.fold_select, kc.fold_draw, kc.min_fold = saved
+            for k, fn in zip(names, saved):
+                setattr(kc, k, fn)
 
     return swapped()
 
@@ -1931,6 +2158,46 @@ def run_selection_path(dev, n=130000, d=2048, n_lab=50000, budget=10000,
             f"{out[mode]['pool_passes']} pool passes, "
             f"{out[mode]['host_syncs']} host syncs; launches "
             f"{ {k: v for k, v in launches[mode].items() if v} }")
+        if mode != "randomized":
+            # The batched scan against the q = 1 kernel scan: the same
+            # picks and distances bit for bit (outside the counted run).
+            b = budget if mode == "unpartitioned" else budget // parts
+            bound = skc.max_host_syncs(b, 8)
+            if any(sc["host_syncs"] > bound for sc in scans):
+                raise AssertionError(f"selection {mode}: host syncs "
+                                     f"{[sc['host_syncs'] for sc in scans]}"
+                                     f" over the bound {bound}")
+            dists_b = skc.LAST_PICK_DISTS if mode == "unpartitioned" \
+                else None
+            t0 = time.perf_counter()
+            if mode == "unpartitioned":
+                p1 = skc.kcenter_greedy((x,), labeled, budget, batch_q=1,
+                                        rng=np.random.default_rng(SEED))
+            else:
+                rows = part_rows[0]
+                idx = torch.as_tensor(rows, device=dev)
+                skc.kcenter_greedy((x[idx],), labeled[rows], b, batch_q=8,
+                                   rng=np.random.default_rng(SEED))
+                dists_b = skc.LAST_PICK_DISTS
+                p1 = skc.kcenter_greedy((x[idx],), labeled[rows], b,
+                                        batch_q=1,
+                                        rng=np.random.default_rng(SEED))
+            q1_wall = time.perf_counter() - t0
+            same = (np.array_equal(p1, picks[0]) and np.array_equal(
+                skc.LAST_PICK_DISTS.view(np.uint32),
+                dists_b.view(np.uint32)))
+            if not same:
+                s0 = int(np.flatnonzero(p1 != picks[0])[0]) \
+                    if not np.array_equal(p1, picks[0]) else None
+                raise AssertionError(f"selection {mode}: the batched picks "
+                                     f"are not the q = 1 scan's (first "
+                                     f"difference at {s0})")
+            out[mode]["q1_scan_equal"] = True
+            out[mode]["q1_scan_wall_s"] = q1_wall
+            log(f"selection {mode}: the q = 1 kernel scan "
+                f"({'whole run' if mode == 'unpartitioned' else 'partition 0'}"
+                f", {q1_wall:.2f} s) picks the same rows at the same "
+                f"distances, bit for bit")
         with _plain_kcenter():
             plain, _, plain_wall = run(mode, only=0)
         out[mode]["plain_wall_s_held"] = plain_wall
@@ -1974,6 +2241,8 @@ def _sig(args):
     def one(x, top):
         if isinstance(x, torch.Tensor):
             return tuple(x.shape)
+        if hasattr(x, "passes"):  # kernel E's BatchState: first pass or not
+            return ("state", x.q, min(x.passes, 1))
         if isinstance(x, (tuple, list)):
             return tuple(one(v, False) for v in x)
         return x if top and isinstance(x, (bool, int)) else None
@@ -1981,10 +2250,10 @@ def _sig(args):
 
 
 def _copy(x):
-    if isinstance(x, torch.Tensor):
-        return x.clone()
     if isinstance(x, (tuple, list)):
         return type(x)(_copy(v) for v in x)
+    if hasattr(x, "clone"):  # a tensor, or kernel E's BatchState
+        return x.clone()
     return x
 
 
@@ -2002,20 +2271,20 @@ def recording_kernel_inputs(targets=None, keep=None):
     from active_learning_tpu_torch.strategies import scoring
 
     if targets is None:
-        targets = [(kc, n) for n in ("fold_select", "fold_draw",
-                                     "min_fold")] + \
+        targets = [(kc, n) for n in ("fold_select", "batch_pass",
+                                     "fold_draw", "min_fold")] + \
             [(scoring, n) for n in ("badge_factors", "boundary_radii",
                                     "head_pair_norms")]
     calls = {n: [] for _, n in targets}
     seen = set()
 
     def wrap(name, fn):
-        def recorded(*args):
+        def recorded(*args, **kwargs):
             key = (name, _sig(args))
             if key not in seen and (keep is None or keep(name, args)):
                 seen.add(key)
                 calls[name].append(_copy(args))
-            return fn(*args)
+            return fn(*args, **kwargs)
         return recorded
 
     @contextlib.contextmanager
@@ -2035,7 +2304,8 @@ def recording_kernel_inputs(targets=None, keep=None):
 def check_recorded_inputs(calls, detail, path):
     """Kernels E, F and G against their plain versions on the inputs a
     path gave them (recording_kernel_inputs): E's fold + top-q with the
-    recorded centers and q, its min fold over the recorded centers and
+    recorded centers and q, its batched pass from the recorded state
+    (``_check_batch_pass``), its min fold over the recorded centers and
     its D² draw over up to 20 steps from the recorded state; F on the
     recorded embeddings and head; G pooled and unpooled on the recorded
     logits and embeddings.  Fails if a kernel of the three got no call.
@@ -2048,6 +2318,12 @@ def check_recorded_inputs(calls, detail, path):
                  f"centers={centers.numel()}")
         err["E"] = max(err["E"], _check_fold_select(
             factors, sqn, md, sel, centers, q, where, detail, path))
+    for factors, sqn, md, sel, state in calls["batch_pass"]:
+        where = (f"N={sqn.shape[0]} D="
+                 f"{'+'.join(str(f.shape[1]) for f in factors)} "
+                 f"pass {state.passes + 1}")
+        err["E"] = max(err["E"], _check_batch_pass(
+            factors, sqn, md, sel, state, where, detail, path))
     for factors, sqn, _, centers in calls["min_fold"]:
         where = (f"N={sqn.shape[0]} D="
                  f"{'+'.join(str(f.shape[1]) for f in factors)} "
@@ -2072,7 +2348,7 @@ def check_recorded_inputs(calls, detail, path):
         err["G"] = max(err["G"], _check_badge(logits, emb, where, detail,
                                               path))
     shapes = {n: [_sig(a) for a in v] for n, v in calls.items() if v}
-    for kernel, names in (("E", ("fold_select", "min_fold")),
+    for kernel, names in (("E", ("fold_select", "batch_pass", "min_fold")),
                           ("F", ("boundary_radii",)),
                           ("G", ("badge_factors",))):
         if not any(calls[n] for n in names):
@@ -2259,7 +2535,7 @@ def _h_targets():
 def _bc_targets():
     from active_learning_tpu_torch.ops import bn_act as ba
     from active_learning_tpu_torch.ops import bn_train as bt
-    return [(bt, "bn_stats"), (bt, "bn_bwd_reduce"), (bt, "bn_dx"),
+    return [(bt, "bn_forward_stats"), (bt, "bn_backward"), (bt, "bn_dx"),
             (ba, "bn_act")]
 
 
@@ -2283,44 +2559,64 @@ def check_recorded_h(calls, detail, path):
 def check_recorded_bn(calls, detail, path):
     """Kernels B and C against their plain versions on the inputs a path
     gave them: the statistics and backward sums within 1e-5 of the sum
-    of the terms' magnitudes (as ``check_bn_train``), dx bit-equal from
+    of the terms' magnitudes (as ``check_bn_train``), the chains from the
+    same sums within BN_CHAIN_ULPS, dx and the masked gy bit-equal from
     the same coefficients, kernel B within 1e-6 of its terms (plus one
     bf16 ulp in bf16, as ``check_bn_act``).  Returns (B err, C err)."""
     from active_learning_tpu_torch.ops import bn_act as ba
     from active_learning_tpu_torch.ops import bn_train as bt
 
-    for name in ("bn_stats", "bn_bwd_reduce", "bn_dx", "bn_act"):
+    for name in ("bn_forward_stats", "bn_backward", "bn_dx", "bn_act"):
         if not calls[name]:
             raise AssertionError(f"path {path}: no call of {name} recorded")
     dims = (0, 2, 3)
     err_b = err_c = 0.0
-    for (x,) in calls["bn_stats"]:
+    for x, scale, bias, eps, fused, running, *_ in calls["bn_forward_stats"]:
         n = x.shape[0] * x.shape[2] * x.shape[3]
         inv = float(np.float32(1.0) / np.float32(n))
+        ra = tuple(r.clone() for r in running) if running else None
+        mean, mean2, var, coeffs = bt.bn_forward_stats(
+            x, scale, bias, eps, fused, running)
         xf = x.float()
-        for got, ref, mag in zip(bt.bn_stats(x),
+        for got, ref, mag in zip((mean, mean2),
                                  bt.channel_sums_reference(x, x, inv),
                                  (xf.abs().sum(dims) * inv,
                                   (xf * xf).sum(dims) * inv)):
             diff = (got - ref).abs()
             if bool((diff > 1e-5 * mag + 1e-30).any()):
-                raise AssertionError(f"{path} bn_stats {tuple(x.shape)}: "
+                raise AssertionError(f"{path} bn_forward_stats "
+                                     f"{tuple(x.shape)}: "
                                      f"{diff.max().item()}")
             err_c = max(err_c, diff.max().item())
-    for gy, x in calls["bn_bwd_reduce"]:
-        gf, xf = gy.float(), x.float()
-        for got, ref, mag in zip(bt.bn_bwd_reduce(gy, x),
-                                 bt.channel_sums_reference(gy, x),
+        p_var, p_coeffs = bt.forward_chain_reference(
+            mean, mean2, scale, bias, eps, x.dtype, fused, ra)
+        _hold_bn_chain((var, *coeffs) + (tuple(running) if ra else ()),
+                       (p_var, *p_coeffs) + (ra or ()),
+                       f"{path} forward {tuple(x.shape)}")
+    for gy, x, y, scale, mean, mean2, eps, fused in calls["bn_backward"]:
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        sums = bt.bn_backward_local(gy, x, y, scale, mean, mean2, eps,
+                                    fused)[0]
+        full = bt.bn_backward(gy, x, y, scale, mean, mean2, eps, fused)
+        gm = bt.relu_mask_reference(gy, y)
+        gf, xf = gm.float(), x.float()
+        for got, ref, mag in zip(sums, bt.channel_sums_reference(gm, x),
                                  (gf.abs().sum(dims),
                                   (gf * xf).abs().sum(dims))):
             diff = (got - ref).abs()
             if bool((diff > 1e-5 * mag + 1e-30).any()):
-                raise AssertionError(f"{path} bn_bwd_reduce "
+                raise AssertionError(f"{path} bn_backward "
                                      f"{tuple(x.shape)}: {diff.max()}")
             err_c = max(err_c, diff.max().item())
-    for args in calls["bn_dx"]:
-        if not torch.equal(bt.bn_dx(*args), bt.bn_dx_reference(*args)):
-            raise AssertionError(f"{path} bn_dx {tuple(args[0].shape)}: "
+        _hold_bn_chain(full, bt.backward_coefficients(
+            sums[0], sums[1], scale, mean, mean2, eps, float(n), x.dtype,
+            fused), f"{path} backward {tuple(x.shape)}")
+    for gy, x, y, mul, c2, c1, *masked in calls["bn_dx"]:
+        got = bt.bn_dx(gy, x, y, mul, c2, c1, True)
+        if not (torch.equal(got[0], bt.bn_dx_reference(gy, x, y, mul, c2,
+                                                        c1))
+                and torch.equal(got[1], bt.relu_mask_reference(gy, y))):
+            raise AssertionError(f"{path} bn_dx {tuple(x.shape)}: "
                                  "not bit-equal")
     for x, coeffs, res, relu in calls["bn_act"]:
         got = ba.bn_act(x, coeffs, res, relu).float()
@@ -2343,7 +2639,8 @@ def check_recorded_bn(calls, detail, path):
                    "bn_act_err": err_b, "bn_train_err": err_c})
     log(f"kernels B and C held at the {path} path's recorded inputs "
         f"({len(shapes)} shapes: {shapes}): bn_act max err {err_b:.3g}, "
-        f"bn_train sums max err {err_c:.3g}, dx bit-equal")
+        f"bn_train sums max err {err_c:.3g}, chains within "
+        f"{BN_CHAIN_ULPS} ulp, dx bit-equal")
     return err_b, err_c
 
 
@@ -3679,7 +3976,8 @@ def run_dp_experiment(root: str, n_train: int = 1024, n_test: int = 128,
         out["modes"][mode] = m
         j_count = sum(lsum[k] for k in j_names)
         a_d = ("prob_stats", "bn_act", "bn_train_stats",
-               "bn_train_bwd_reduce", "bn_train_dx", "fused_sgd")
+               "bn_train_bwd_reduce", "bn_train_chain", "bn_train_dx",
+               "fused_sgd")
         log(f"dp {mode}: sync {m['grad_sync']} {m['form'] or ''}, probe "
             f"{m['probe']}, {len(steps)} train steps, median of the "
             f"last {len(warm)} {m['step_ms_median']:.1f} ms (range "
@@ -3950,10 +4248,12 @@ def main() -> int:
         by = {p: sum(v[n] for n in names) for p, v in paths.items()}
         return {"launches": sum(by.values()), "launches_by_path": by}
 
-    c_names = ("bn_train_stats", "bn_train_bwd_reduce", "bn_train_dx")
+    c_names = ("bn_train_stats", "bn_train_bwd_reduce", "bn_train_chain",
+               "bn_train_dx")
     j_names = ("int8_absmax", "int8_quantize", "int8_dequant_sum",
                "int8_sum_requantize")
-    e_names = ("kcenter_fold_select", "kcenter_fold_draw", "kcenter_min_fold")
+    e_names = ("kcenter_fold_select", "kcenter_batch_pass",
+               "kcenter_fold_draw", "kcenter_min_fold")
     f_names = ("boundary_radii", "head_pair_norms")
     kernels = [
         {"name": "prob_stats", "route": "cuda",

@@ -7,8 +7,9 @@ Each turn is a fresh process that imports the checkout's own
 ``chip_smoke.py`` and package (from ``DIR``) and runs its path (a),
 ``run_fit_path``: ``Trainer.fit`` on full-width SSLResNet50, then a
 timed window and a profiled window of train steps.  Prints one JSON line
-per turn (``step_ms``, the profiled wall and device-busy ms a step) and,
-last, a summary with each checkout's two turns.  Compare two versions
+per turn (``step_ms`` on the host clock, the profiled wall and
+device-busy ms a step, the device's busy share and the kernel launches a
+step) and, last, a summary with each checkout's two turns.  Compare two versions
 only within one such run: the card's clocks and power limit differ
 between machines.  With ``--s2d`` each turn also runs the checkout's
 ``time_s2d_step`` (phase 16.4: a B=128 step with the s2d stem and with
@@ -89,8 +90,8 @@ del p, g, t
 torch.cuda.empty_cache()
 out = cs.run_fit_path(torch.device("cuda"))
 res.update({{k: out[k] for k in ("step_ms", "profiled_wall_ms_per_step",
-                                 "device_ms_per_step",
-                                 "device_busy_share")}})
+                                 "device_ms_per_step", "device_busy_share",
+                                 "kernel_launches_per_step")}})
 if {s2d!r}:
     s2d = cs.time_s2d_step(torch.device("cuda"), reps=5)
     for stem in ("default", "s2d"):
@@ -130,6 +131,9 @@ def main(argv) -> int:
                               **{k: [r[k] for r in rs] for k in rs[0]
                                  if k.endswith("device_ms")
                                  or k in ("device_ms_per_step",
+                                          "device_busy_share",
+                                          "kernel_launches_per_step",
+                                          "profiled_wall_ms_per_step",
                                           "sgd_host_us", "sgd_device_ms")}}
                       for label, rs in runs.items()}))
     return 0

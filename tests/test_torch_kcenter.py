@@ -184,3 +184,65 @@ def test_min_sq_dist_and_fold_helpers_match_jax():
 def test_adaptive_avg_pool_matrix_is_jax_bit_for_bit(n_in, n_out):
     np.testing.assert_array_equal(pk.adaptive_avg_pool_matrix(n_in, n_out),
                                   jk.adaptive_avg_pool_matrix(n_in, n_out))
+
+
+def _int_pool(seed, n, dims, n_labeled):
+    """Small-integer factors: every product and sum is exact in float32
+    whatever its order, so the two packages' distances agree bit for bit
+    and ties (equal distances) are common."""
+    rng = np.random.default_rng(seed)
+    factors = tuple(rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+                    for d in dims)
+    labeled = rng.choice(n, n_labeled, replace=False)
+    return factors, labeled
+
+
+@pytest.mark.parametrize("n", [250, 260], ids=["below-edge", "above-edge"])
+@pytest.mark.parametrize("dims", [(6,), (3, 5)], ids=["one", "two"])
+@pytest.mark.parametrize("q", [1, 2, 8])
+def test_batched_pass_matches_jax_scan_bit_for_bit(q, dims, n):
+    """The batched scan on kernel E's plain ``batch_pass`` (re-check and
+    pick count in the scan state, the host reading the count once a
+    round) against the JAX package's ``_kcenter_scan_batched`` on the
+    same padded pool: picks and distances bit for bit."""
+    factors, labeled = _int_pool(40 + q + n, n, dims, 30)
+    n_pad = bucket_size(n, floor=pk.POOL_BUCKET_FLOOR)
+    padded = [np.pad(f, ((0, n_pad - n), (0, 0))) for f in factors]
+    sel = np.zeros(n_pad, np.float32)
+    sel[:n] = 1.0
+    sel[labeled] = 0.0
+    budget = 40
+    jf = tuple(jnp.asarray(f) for f in padded)
+    jsqn = jk.self_sq_norms(jf)
+    want_p, want_d = jk._kcenter_scan_batched(
+        jf, jsqn, jk.min_sq_dist_to(jf, jsqn, labeled), jnp.asarray(sel),
+        budget=budget, q=q)
+    tf = tuple(torch.from_numpy(f) for f in padded)
+    tsqn = pk.self_sq_norms(tf)
+    got_p, got_d = pk._kcenter_scan_batched(
+        tf, tsqn, pk.min_sq_dist_to(tf, tsqn, labeled),
+        torch.from_numpy(sel.copy()), budget, q)
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+    np.testing.assert_array_equal(got_d.numpy().view(np.uint32),
+                                  np.asarray(want_d).view(np.uint32))
+    assert pk.LAST_SCAN["host_syncs"] <= pk.max_host_syncs(budget, q)
+
+
+@pytest.mark.parametrize("budget,q", [(13, 8), (120, 8), (120, 2), (1, 8)])
+def test_host_syncs_stay_under_the_stated_count(budget, q):
+    """The batched scan reads the pick count once a round of passes:
+    never more than ``max_host_syncs(budget, q)`` times, fewer times
+    than it passes over the pool once a pass accepts several picks, and
+    its passes are the ones it needed (each accepts at least one)."""
+    factors, labeled = _pool(17, 400, (8,), 20)
+    got = pk.kcenter_greedy(factors, labeled, budget, batch_q=q,
+                            device="cpu")
+    np.testing.assert_array_equal(got, oracle_kcenter(factors[0], labeled,
+                                                      budget))
+    scan = pk.LAST_SCAN
+    passes = scan["pool_passes"] - 1  # less the labeled set's min_fold
+    assert scan["host_syncs"] <= pk.max_host_syncs(budget, min(q, budget))
+    assert passes <= budget
+    if budget >= 4 * q:
+        assert scan["host_syncs"] < passes / 2
+    assert pk.max_host_syncs(10000, 8) < 100

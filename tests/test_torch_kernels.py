@@ -9,6 +9,7 @@ runs on a machine without JAX; there, skip the JAX-importing conftest:
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -99,45 +100,142 @@ def _cl(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous(memory_format=torch.channels_last)
 
 
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in float32 units in the last place."""
+    ia = a.detach().contiguous().view(torch.int32).long()
+    ib = b.detach().contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+# The chains on the card against their plain versions (PyTorch ops on the
+# card) from the same sums: 0 ulp.  Every step is one separately rounded
+# float32 operation in the plain version's order, the rsqrt is rsqrtf
+# (PyTorch's CUDA rsqrt) and a division by a Python number is a multiply
+# by its float32 reciprocal (PyTorch's CUDA division by a scalar).
+BN_CHAIN_ULPS = 0
+
+
+def hold_bn_train(x, gy, y, scale, bias, fused):
+    """Kernel C's entry points against their plain versions on one input
+    (returns the sums' largest error over its bound).  The sums are f32
+    sums in another order: within 1e-5 of the sum of the terms'
+    magnitudes (per row count for the means).  The chains from the same
+    sums: within BN_CHAIN_ULPS.  dx from the same coefficients and the
+    masked gy: bit-equal.  Two launches: bit-equal."""
+    c, dev = x.shape[1], x.device
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    inv = float(np.float32(1.0) / np.float32(n))
+    running = (torch.randn(c, device=dev), torch.rand(c, device=dev) + 0.5)
+    ra = tuple(r.clone() for r in running)
+    before = (bt.stats_launches, bt.reduce_launches, bt.chain_launches,
+              bt.dx_launches)
+    mean, mean2, var, coeffs = bt.bn_forward_stats(x, scale, bias, 1e-5,
+                                                   fused, running)
+    sums, dscale_l, dbias_l = bt.bn_backward_local(gy, x, y, scale, mean,
+                                                   mean2, 1e-5, fused)
+    full = bt.bn_backward(gy, x, y, scale, mean, mean2, 1e-5, fused)
+    chain = bt.bn_backward_chain(sums, float(n), scale, mean, mean2, 1e-5,
+                                 x.dtype, fused)
+    dx, gres = bt.bn_dx(gy, x, y, *full[2:], masked_gy=True)
+    torch.cuda.synchronize()
+    assert (bt.stats_launches, bt.reduce_launches, bt.chain_launches,
+            bt.dx_launches) == (before[0] + 1, before[1] + 2, before[2] + 1,
+                                before[3] + 1)
+    xf = x.float()
+    gm = bt.relu_mask_reference(gy, y).float()
+    dims = (0, 2, 3)
+    rm, rm2 = bt.channel_sums_reference(x, x, inv)
+    rs1, rs2 = bt.channel_sums_reference(bt.relu_mask_reference(gy, y), x)
+    worst = 0.0
+    for got, ref, mag in ((mean, rm, xf.abs().sum(dims) * inv),
+                          (mean2, rm2, (xf * xf).sum(dims) * inv),
+                          (sums[0], rs1, gm.abs().sum(dims)),
+                          (sums[1], rs2, (gm * xf).abs().sum(dims))):
+        ratio = ((got - ref).abs() / (1e-5 * mag + 1e-30)).max().item()
+        assert ratio <= 1.0, ratio
+        worst = max(worst, ratio)
+    p_var, p_coeffs = bt.forward_chain_reference(mean, mean2, scale, bias,
+                                                 1e-5, x.dtype, fused, ra)
+    for a, b in zip((var, *coeffs, *running), (p_var, *p_coeffs, *ra)):
+        assert _ulps(a, b) <= BN_CHAIN_ULPS
+    p_full = bt.backward_coefficients(sums[0], sums[1], scale, mean, mean2,
+                                      1e-5, float(n), x.dtype, fused)
+    for a, b in zip(full, p_full):
+        assert _ulps(a, b) <= BN_CHAIN_ULPS
+    for a, b in zip((dscale_l, dbias_l) + tuple(chain),
+                    p_full[:2] + p_full[2:]):
+        assert _ulps(a, b) <= BN_CHAIN_ULPS
+    assert torch.equal(dx, bt.bn_dx_reference(gy, x, y, *full[2:]))
+    assert torch.equal(gres, bt.relu_mask_reference(gy, y))
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    again = bt.bn_forward_stats(x, scale, bias, 1e-5, fused)[:3] + \
+        bt.bn_backward(gy, x, y, scale, mean, mean2, 1e-5, fused)
+    for a, b in zip(again, (mean, mean2, var) + tuple(full)):
+        assert torch.equal(a, b)
+    return worst
+
+
+def _bn_inputs(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _cl((torch.randn(shape, device=dev, generator=g) * 2 + 1).to(dtype))
+    gy = _cl(torch.randn(shape, device=dev, generator=g).to(dtype))
+    y = _cl(torch.relu(torch.randn(shape, device=dev, generator=g))
+            .to(dtype))
+    c = shape[1]
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    bias = torch.randn(c, device=dev, generator=g)
+    return x, gy, y, scale, bias
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(4, 96, 7, 9), (2, 64, 56, 56),
                                    (3, 33, 5, 5)])
 def test_bn_train_kernels_match_plain(cuda_device, dtype, shape):
-    """Kernel C's three functions against their plain versions on the
-    same inputs.  The sums are f32 sums in another order: within 1e-5 of
-    the sum of magnitudes (per row count for the means).  dx from the
-    same coefficients: bit-equal (the same separately rounded float32
-    operations).  Two launches: bit-equal (the row partition depends on
-    the shape only, and nothing is atomic)."""
-    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
-    x = _cl((torch.randn(shape, device=cuda_device, generator=g) * 2 + 1)
-            .to(dtype))
-    gy = _cl(torch.randn(shape, device=cuda_device, generator=g).to(dtype))
-    n = shape[0] * shape[2] * shape[3]
-    before = (bt.stats_launches, bt.reduce_launches, bt.dx_launches)
-    mean, mean2 = bt.bn_stats(x)
-    s1, s2 = bt.bn_bwd_reduce(gy, x)
-    c = shape[1]
-    mul, c2, c1 = (torch.randn(c, device=cuda_device, generator=g)
-                   for _ in range(3))
-    dx = bt.bn_dx(gy, x, mul, c2, c1)
-    torch.cuda.synchronize()
-    assert (bt.stats_launches, bt.reduce_launches, bt.dx_launches) == tuple(
-        v + 1 for v in before)
-    rm, rm2 = bt.channel_sums_reference(x, x, 1.0 / n)
-    rs1, rs2 = bt.channel_sums_reference(gy, x)
-    xf, gf = x.float(), gy.float()
-    dims = (0, 2, 3)
-    for got, ref, mag in ((mean, rm, xf.abs().sum(dims) / n),
-                          (mean2, rm2, (xf * xf).sum(dims) / n),
-                          (s1, rs1, gf.abs().sum(dims)),
-                          (s2, rs2, (gf * xf).abs().sum(dims))):
-        assert bool(((got - ref).abs() <= 1e-5 * mag + 1e-30).all())
-    assert torch.equal(dx, bt.bn_dx_reference(gy, x, mul, c2, c1))
-    assert dx.is_contiguous(memory_format=torch.channels_last)
-    again = bt.bn_stats(x) + bt.bn_bwd_reduce(gy, x)
-    for a, b in zip(again, (mean, mean2, s1, s2)):
-        assert torch.equal(a, b)
+    """Kernel C's entry points against their plain versions on the same
+    inputs (``hold_bn_train``), with the ReLU mask and without, both
+    formulas; (3, 33, 5, 5) takes the one-channel access."""
+    x, gy, y, scale, bias = _bn_inputs(cuda_device, shape, dtype, sum(shape))
+    assert bt.vector_access(x) == (shape[1] != 33)
+    hold_bn_train(x, gy, y, scale, bias, True)
+    hold_bn_train(x, gy, None, scale, bias, False)
+
+
+def _resnet50_bn_shapes(dev, b=4):
+    from active_learning_tpu_torch.models import resnet
+    from active_learning_tpu_torch.models.factory import get_network
+
+    model = get_network("imagenet", "SSLResNet50", device=dev)
+    assert model.dtype == torch.bfloat16
+    shapes = set()
+
+    def hook(mod, args, kwargs):
+        shapes.add(tuple(args[0].shape))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in model.modules() if isinstance(m, resnet.BatchNorm)]
+    with torch.no_grad():
+        model(torch.zeros(b, 224, 224, 3, device=dev))
+    for h in handles:
+        h.remove()
+    return sorted(shapes)
+
+
+def test_bn_train_kernels_at_every_resnet50_shape(cuda_device):
+    """Every BatchNorm shape of SSLResNet50 at 224 px (B=4) in bf16 with
+    the fused formula and the ReLU mask, and a VAAL VAE shape in f32 with
+    flax's: the chains within BN_CHAIN_ULPS of the plain version's from
+    the same sums, dx bit-equal from the same coefficients."""
+    shapes = _resnet50_bn_shapes(cuda_device)
+    assert len(shapes) == 12, shapes
+    for i, shape in enumerate(shapes):
+        x, gy, y, scale, bias = _bn_inputs(cuda_device, shape,
+                                           torch.bfloat16, i)
+        hold_bn_train(x, gy, y, scale, bias, True)
+    x, gy, y, scale, bias = _bn_inputs(cuda_device, (16, 128, 32, 32),
+                                       torch.float32, 99)
+    hold_bn_train(x, gy, y, scale, bias, False)
 
 
 def test_bn_train_function_on_the_card(cuda_device):
@@ -343,6 +441,58 @@ def test_kcenter_fold_draw_matches_plain(cuda_device, n, dims):
     assert kc.draw_launches == before + 20
 
 
+@pytest.mark.parametrize("n,dims", [(256, (37,)), (1000, (5, 7)),
+                                    (13000, (2048,)), (13000, (16, 32)),
+                                    (300, (3, 10))])
+def test_kcenter_batch_pass_matches_the_q1_scan(cuda_device, n, dims):
+    """The batched scan on the card (kernel E's ``batch_pass``: re-check
+    and pick count on the device) against the q = 1 kernel scan: the same
+    picks and distances bit for bit (the re-check's [q, q] distances take
+    the fold's own arithmetic).  Against the plain batched scan: the same
+    picks, or a first difference where the two rows' plain distances lie
+    within twice the fold tolerance.  Two runs: bit-equal.  Odd widths
+    (d % 4 != 0) take the scalar loads; 256 rows is the smallest pool."""
+    from active_learning_tpu_torch.strategies import kcenter as skc
+
+    factors, sqn, md0, sel0, _ = _kc_pool(cuda_device, n, dims, n + 3)
+    budget = min(200, n // 4)
+
+    def scan(batched, md, sel, plain=False):
+        if not batched:
+            return skc._kcenter_scan(factors, sqn, md, sel, budget, False,
+                                     (0, 0))
+        if not plain:
+            return skc._kcenter_scan_batched(factors, sqn, md, sel, budget, 8)
+        state = kc.BatchState(n, budget, 8, cuda_device)
+        while int(state.count[0]) < budget:
+            kc.batch_pass_reference(factors, sqn, md, sel, state)
+            state.passes += 1
+        return state.picks[:budget], state.dists[:budget]
+
+    before = kc.batch_launches
+    md_b, sel_b = md0.clone(), sel0.clone()
+    pb, db = scan(True, md_b, sel_b)
+    syncs = skc.LAST_SCAN["host_syncs"]
+    assert kc.batch_launches - before == skc.LAST_SCAN["pool_passes"]
+    assert syncs <= skc.max_host_syncs(budget, 8)
+    md_1, sel_1 = md0.clone(), sel0.clone()
+    p1, d1 = scan(False, md_1, sel_1)
+    assert torch.equal(pb, p1)
+    assert torch.equal(db.view(torch.int32), d1.view(torch.int32))
+    md_a, sel_a = md0.clone(), sel0.clone()
+    pa, da = scan(True, md_a, sel_a)
+    assert torch.equal(pa, pb) and torch.equal(da, db)
+    assert torch.equal(md_a, md_b) and torch.equal(sel_a, sel_b)
+    pp, dp = scan(True, md0.clone(), sel0.clone(), plain=True)
+    differ = (pp != pb).nonzero()
+    tol = kc.fold_tolerance(sqn, float(sqn.max()), sum(dims)).max()
+    if differ.numel():
+        s = int(differ[0, 0])
+        assert abs(float(dp[s]) - float(db[s])) <= 2 * float(tol)
+    else:
+        assert bool(((dp - db).abs() <= 2 * tol).all())
+
+
 def test_kcenter_wrappers_raise_rather_than_fall_back(cuda_device):
     f = torch.zeros(10, 4, device=cuda_device)
     v = torch.zeros(10, device=cuda_device)
@@ -352,6 +502,13 @@ def test_kcenter_wrappers_raise_rather_than_fall_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         kc.min_fold((torch.zeros(10, 8, device=cuda_device)[:, ::2],), v,
                     v.clone(), torch.arange(2, device=cuda_device))
+    with pytest.raises(ValueError, match="device"):
+        kc.batch_pass((f,), v, v.clone(), v.clone(),
+                      kc.BatchState(10, 4, 2, "cpu"))
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(10, 8000, device=cuda_device)
+        kc.fold_select((big,), v, v.clone(), v.clone(),
+                       torch.arange(8, device=cuda_device), 8)
 
 
 # -- kernel F: boundary radii, pair norms -------------------------------------

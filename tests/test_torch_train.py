@@ -289,6 +289,146 @@ def test_bn_train_residual_relu_gradient():
         np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
 
 
+def _bn_chain_inputs(seed, shape=(4, 16, 6, 6), dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    nhwc = shape[:1] + shape[2:] + shape[1:2]
+    xa = rng.normal(size=nhwc) * 2 + 1
+    xa[..., 0] = 1.5  # a constant channel: the variance clamps to 0
+    ya = rng.normal(size=nhwc)
+    ya.reshape(-1)[::7] = 0.0  # ReLU outputs exactly 0: masked
+    x, y = _nchw(xa, dtype), _nchw(ya, dtype)
+    gy = _nchw(rng.normal(size=nhwc), dtype)
+    c = shape[1]
+    acc = torch.promote_types(dtype, torch.float32)
+    scale = torch.tensor(rng.normal(size=c) + 1.0, dtype=acc)
+    bias = torch.tensor(rng.normal(size=c), dtype=acc)
+    running = (torch.tensor(rng.normal(size=c), dtype=torch.float32),
+               torch.tensor(rng.uniform(0.5, 1.5, c), dtype=torch.float32))
+    return x, gy, y, scale, bias, running
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.detach().contiguous().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("world", [1, 2], ids=["one-rank", "two-ranks"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "flax"])
+def test_bn_forward_chain_plain_equals_the_composition(fused, world):
+    """Kernel C's forward statistics with the ``[C]`` chain folded in
+    (one rank: ``bn_forward_stats``; N ranks: ``bn_stats``, the
+    all-reduce, ``bn_forward_chain``) against the composition the port
+    ran before the chain moved into the kernel: the means, the variance
+    clamp, ``bn_coefficients`` and the model's running update, bit for
+    bit in f32 on the CPU."""
+    x, _, _, scale, bias, running = _bn_chain_inputs(11)
+    ra = tuple(r.clone() for r in running)
+    inv = float(np.float32(1.0) / np.float32(4 * 6 * 6))
+    mean, mean2 = bn_train.channel_sums_reference(x, x, inv)
+    if world > 1:
+        # The second rank's rows are this rank's, so the sums double.
+        mean, mean2 = torch.stack([mean, mean2]) * 2 / world
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    coeffs = bn_train.bn_act_lib.bn_coefficients(scale, bias, mean, var,
+                                                 1e-5, x.dtype, fused)
+    want_ra = tuple(0.9 * r + (1 - 0.9) * v for r, v in zip(ra, (mean, var)))
+    if world == 1:
+        got = bn_train.bn_forward_stats(x, scale, bias, 1e-5, fused, running)
+    else:
+        stats = bn_train.bn_stats(x) * 2  # the all-reduce over two ranks
+        got = bn_train.bn_forward_chain(stats, world, scale, bias, 1e-5,
+                                        x.dtype, fused, running)
+    for a, b in zip(got[:3] + tuple(got[3]) + running,
+                    (mean, mean2, var) + tuple(coeffs) + want_ra):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no-relu"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "flax"])
+def test_bn_backward_chain_plain_equals_the_composition(fused, relu):
+    """Kernel C's backward with the ReLU mask and the ``[C]`` chain
+    folded in (``bn_backward``; for N ranks ``bn_backward_local``, the
+    all-reduce, ``bn_backward_chain``) and dx with the masked gy written
+    beside it, against the composition the port ran before: the mask
+    (``torch.where``), the two sums, ``backward_coefficients`` and dx,
+    bit for bit in f32 on the CPU."""
+    x, gy, y, scale, _, _ = _bn_chain_inputs(12)
+    y = y if relu else None
+    inv = float(np.float32(1.0) / np.float32(4 * 6 * 6))
+    mean, mean2 = bn_train.channel_sums_reference(x, x, inv)
+    n = float(4 * 6 * 6)
+    gym = torch.where(y > 0, gy, torch.zeros(())) if relu else gy
+    s1, s2 = bn_train.channel_sums_reference(gym, x)
+    want = bn_train.backward_coefficients(s1, s2, scale, mean, mean2, 1e-5,
+                                          n, x.dtype, fused)
+    got = bn_train.bn_backward(gy, x, y, scale, mean, mean2, 1e-5, fused)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    want_dx = bn_train.bn_dx_reference(gym, x, None, *want[2:])
+    dx, gres = bn_train.bn_dx(gy, x, y, *got[2:], masked_gy=True)
+    np.testing.assert_array_equal(_bits(dx), _bits(want_dx))
+    np.testing.assert_array_equal(_bits(gres), _bits(gym))
+    # Two ranks holding the same rows: global sums double, n doubles.
+    sums, dscale, dbias = bn_train.bn_backward_local(gy, x, y, scale, mean,
+                                                     mean2, 1e-5, fused)
+    for a, b in zip((dscale, dbias), want[:2]):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    sums = sums * 2
+    want2 = bn_train.backward_coefficients(s1 * 2, s2 * 2, scale, mean,
+                                           mean2, 1e-5, 2 * n, x.dtype,
+                                           fused)
+    for a, b in zip(bn_train.bn_backward_chain(sums, 2 * n, scale, mean,
+                                               mean2, 1e-5, x.dtype, fused),
+                    want2[2:]):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no-relu"])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_bn_backward_chain_matches_jax_f64(clamp, relu):
+    """float64: the masked reduction and the backward chain
+    (``bn_backward``) and dx (``bn_dx``) against the VJP of the JAX
+    package's ``_fused_bn_fn`` (through ``jax.nn.relu`` when ``relu``),
+    to 1e-10, the clamped channel included."""
+    x, scale, bias, cot = _bn_data(8, (3, 5, 5, 8), clamp)
+    with jax.enable_x64(True):
+        def f(x_, s_, b_):
+            y_ = jax_backward.fused_bn_train(x_, s_, b_, dtype=jnp.float64,
+                                             epsilon=1e-5)[0]
+            return jax.nn.relu(y_) if relu else y_
+        _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(scale),
+                         jnp.asarray(bias))
+        ref = [np.asarray(v) for v in vjp(jnp.asarray(cot))]
+    xt, gt = _nchw(x), _nchw(cot)
+    st, bt = torch.tensor(scale), torch.tensor(bias)
+    mean, mean2, _, coeffs = bn_train.bn_forward_stats(xt, st, bt, 1e-5,
+                                                       True)
+    y = bn_train.bn_act_lib.bn_act(xt, coeffs, None, True) if relu else None
+    dscale, dbias, mul, c2, c1 = bn_train.bn_backward(gt, xt, y, st, mean,
+                                                      mean2, 1e-5, True)
+    dx = bn_train.bn_dx(gt, xt, y, mul, c2, c1)
+    for a, b in zip((_nhwc(dx), dscale.numpy(), dbias.numpy()), ref):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
+
+
+def test_every_model_batchnorm_takes_the_vector_access():
+    """Kernel C reads 16 bytes a thread when C is a multiple of 8 (bf16)
+    or 4 (f32); every BatchNorm of the port's models (both ResNets with
+    either stem and head width, VAAL's VAE) has such a width, so the
+    one-channel path is only for other callers."""
+    from active_learning_tpu_torch.models import vaal
+
+    models = [resnet.resnet18(10, cifar_stem=True),
+              resnet.resnet18(1000), resnet.resnet50(1000),
+              resnet.resnet50(1000, stem="s2d"), vaal.VAE(64, crop=64)]
+    widths = {m.scale.shape[0] for model in models
+              for m in model.modules() if isinstance(m, resnet.BatchNorm)}
+    assert widths and all(c % 8 == 0 for c in widths), sorted(widths)
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in widths:
+            x = torch.zeros(1, c, 1, 1, dtype=dtype)
+            assert bn_train.vector_access(x)
+
+
 # -- K2: the fused SGD update -----------------------------------------------
 
 def _sgd_tree(seed, state_dtype=np.float32):
