@@ -9,5 +9,5 @@ of whatever host-pure code it needs.
 Slice 1 is the scoring service (``python -m active_learning_tpu_torch
 serve``): SSLResNet18/50 in eval mode, the softmax-statistics pass, and
 the HTTP front end, with two hand-written Hopper kernels on the path
-(``ops/prob_stats.py`` in CUDA C++, ``ops/bn_act.py`` in Triton).
+(``ops/prob_stats.py`` and ``ops/bn_act.py``, both CUDA C++).
 """

@@ -1,5 +1,5 @@
 """The port's hand-written kernels: kernel A ``prob_stats`` (CUDA),
-kernel B ``bn_act`` (Triton), kernel C ``bn_train`` (CUDA: the
+kernel B ``bn_act`` (CUDA), kernel C ``bn_train`` (CUDA: the
 statistics and the backward reduction with their [C] chains, the N-rank
 chain, dx), kernel D ``fused_sgd`` (CUDA), kernel E ``kcenter`` (CUDA:
 fold + top-q, the batched greedy's pass with its re-check, fold + D²
@@ -52,5 +52,6 @@ def reset_kernel_launches() -> None:
     boundary_radii.reset_launches()
     badge.launches = 0
     balancing.launches = 0
+    balancing.kernel_launches = 0
     stem_conv.launches = 0
     int8_sync.reset_launches()

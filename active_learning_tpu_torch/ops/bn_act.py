@@ -1,5 +1,5 @@
 """Kernel B: eval-mode BatchNorm, optional residual add and ReLU in one
-pass (the eval half of ROADMAP K1), in Triton.
+pass (the eval half of ROADMAP K1), in CUDA C++ (``csrc/bn_act.cu``).
 
 Replaces the BatchNorm affine of the JAX package's
 ``models/resnet.py`` (``FusedBatchNorm`` ``x·mul − sub`` at
@@ -21,25 +21,26 @@ coefficients:
   * flax ``nn.BatchNorm`` (``bn_stats_dtype`` resolved to None): shift
     = mean, mul = rsqrt(var + eps)·scale, add = bias, in float32.
 
-Bound: device-memory bytes.  Per element it reads x (and the residual)
-and writes y — 4 (6) bytes in bf16, 8 (12) in float32 — and does four
-flops, far below the card's ridge point.  Design: a 2-D tile of pixels ×
-channels over the contiguous NHWC (channels-last) buffer, so each tile
-loads its channels' coefficients once and every load and store is
-contiguous along the channels; no integer division per element.
-Floating-point contraction is turned off at launch, so the kernel does
-the plain version's separately rounded float32 operations in the same
-order and agrees with it bit for bit.
+Bound: device-memory bytes (the source note in ``csrc/bn_act.cu`` says
+how the kernel reads them).  The kernel does the plain version's
+separately rounded float32 operations in the same order and agrees with
+it bit for bit.  The host side is half of the design: a call looks up
+its launch plan (``launch_plan``: variant, units, grid) by every fact
+the checks read, allocates the output and makes one ctypes call on the
+current stream, so a forward's 53 calls are not paced by the host.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-# Launches of the Triton kernel since the process started (or since a
-# caller reset it).
+from . import _build
+
+# Launches of the kernel since the process started (or since a caller
+# reset it).
 launches = 0
 
 Coefficients = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -111,72 +112,120 @@ def _check(x: torch.Tensor, coeffs: Coefficients,
                              "dtype, device and channels_last layout")
 
 
+# Threads a block and units a thread of the kernel (csrc/bn_act.cu).
+THREADS, UNROLL = 256, 4
+# Variant bits of the C interface (csrc/bn_act.cu variant_kernel).
+BF16, RES, RELU, VEC = 1, 2, 4, 8
+
+
+class Plan(NamedTuple):
+    """How the kernel walks one tensor: its variant bits, the units it
+    holds (16-byte vectors of 8 bf16 or 4 float32 on the vector path,
+    elements on the scalar path), the units in one pixel's row of
+    channels, the elements a unit holds, and the blocks of the launch
+    (``UNROLL`` units a thread, never fewer threads than ``upr``)."""
+    variant: int
+    units: int
+    upr: int
+    unit: int
+    blocks: int
+
+
+_plans: Dict[tuple, Plan] = {}
+
+
+def launch_plan(x: torch.Tensor, coeffs: Coefficients,
+                residual: Optional[torch.Tensor] = None, relu: bool = False,
+                out: Optional[torch.Tensor] = None) -> Plan:
+    """The kernel's plan for these tensors (and the output ``out``, when
+    it exists yet): cached by every fact ``_check`` reads (shapes,
+    strides, dtypes, devices) and by whether every pointer lies on 16
+    bytes, so a cached plan is one whose checks passed for tensors with
+    the same facts.  A miss runs the full checks."""
+    shift, mul, add = coeffs
+    ptrs = x.data_ptr() | shift.data_ptr() | mul.data_ptr() | add.data_ptr()
+    if residual is not None:
+        ptrs |= residual.data_ptr()
+    if out is not None:
+        ptrs |= out.data_ptr()
+    key = (x.shape, x.stride(), x.dtype, x.get_device(), bool(relu),
+           not ptrs & 15,
+           shift.shape, shift.stride(), shift.dtype, shift.get_device(),
+           mul.shape, mul.stride(), mul.dtype, mul.get_device(),
+           add.shape, add.stride(), add.dtype, add.get_device(),
+           None if residual is None else (
+               residual.shape, residual.stride(), residual.dtype,
+               residual.get_device()))
+    pl = _plans.get(key)
+    if pl is None:
+        _check(x, coeffs, residual)
+        bf16 = x.dtype == torch.bfloat16
+        c = x.shape[1]
+        width = 8 if bf16 else 4
+        unit = width if not ptrs & 15 and c % width == 0 else 1
+        variant = ((BF16 if bf16 else 0) | (RES if residual is not None
+                                             else 0)
+                   | (RELU if relu else 0) | (VEC if unit > 1 else 0))
+        units, upr = x.numel() // unit, c // unit
+        blocks = max(-(-units // (THREADS * UNROLL)), -(-upr // THREADS))
+        pl = _plans[key] = Plan(variant, units, upr, unit, blocks)
+    return pl
+
+
 def bn_act(x: torch.Tensor, coeffs: Coefficients,
            residual: Optional[torch.Tensor] = None,
            relu: bool = False) -> torch.Tensor:
     """``relu?((x − shift)·mul + add [+ residual])`` rounded once to
-    ``x.dtype``: the Triton kernel on a CUDA tensor (bf16 or f32), the
+    ``x.dtype``: the CUDA kernel on a CUDA tensor (bf16 or f32), the
     plain version on a CPU tensor (float64 too).  ``x`` (and
     ``residual``) must be channels-last."""
     global launches
-    _check(x, coeffs, residual)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        _check(x, coeffs, residual)
+        if x.device.type != "cpu":
+            raise ValueError(f"bn_act: unsupported device {x.device}")
         return bn_act_reference(x, coeffs, residual, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"bn_act: unsupported device {x.device}")
-    import triton
-
-    y = torch.empty_like(x, memory_format=torch.channels_last)
-    if x.numel() == 0:
+    # x is dense channels-last (the plan's checks): its strides carry over.
+    y = torch.empty_like(x)
+    pl = launch_plan(x, coeffs, residual, relu, y)
+    if pl.units == 0:
         return y
-    b, c, h, w = x.shape
-    pixels = b * h * w
-    block_c = min(triton.next_power_of_2(c), 128)
-    block_p = 4096 // block_c
-    grid = (triton.cdiv(pixels, block_p), triton.cdiv(c, block_c))
-    shift, mul, add = coeffs
-    with torch.cuda.device(x.device):
-        _kernel()[grid](
-            x, residual if residual is not None else x, y, shift, mul, add,
-            pixels, c, HAS_RES=residual is not None, RELU=bool(relu),
-            BLOCK_P=block_p, BLOCK_C=block_c, num_warps=8,
-            enable_fp_fusion=False)
+    dev = x.get_device()
+    if dev == torch.cuda.current_device():
+        err = _launch(x, coeffs, residual, y, pl, dev)
+    else:
+        with torch.cuda.device(dev):
+            err = _launch(x, coeffs, residual, y, pl, dev)
+    if err != 0:
+        raise RuntimeError(f"bn_act kernel launch failed: CUDA error {err}")
     launches += 1
     return y
 
 
-_compiled = None
+def _launch(x, coeffs, residual, y, pl: Plan, dev: int) -> int:
+    shift, mul, add = coeffs
+    return _fn()(x.data_ptr(),
+                 residual.data_ptr() if residual is not None else None,
+                 y.data_ptr(), shift.data_ptr(), mul.data_ptr(),
+                 add.data_ptr(), pl.units, pl.upr, pl.variant, pl.blocks,
+                 _stream(dev))
 
 
-def _kernel():
-    """The jitted kernel.  Triton is imported here, not at module import:
-    a machine without it still imports this module and runs the plain
-    version on CPU tensors.  The kernel body below resolves ``tl`` from
-    this module's globals, which this sets once."""
-    global _compiled, tl
-    if _compiled is None:
-        import triton
-        import triton.language as tl
-        _compiled = triton.jit(_bn_act_kernel)
-    return _compiled
+_entry = None
+_stream = None
 
 
-def _bn_act_kernel(x_ptr, res_ptr, y_ptr, shift_ptr, mul_ptr, add_ptr,
-                   pixels, channels, HAS_RES: tl.constexpr,
-                   RELU: tl.constexpr, BLOCK_P: tl.constexpr,
-                   BLOCK_C: tl.constexpr):
-    p = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
-    c = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-    c_ok = c < channels
-    shift = tl.load(shift_ptr + c, mask=c_ok, other=0.0)
-    mul = tl.load(mul_ptr + c, mask=c_ok, other=0.0)
-    add = tl.load(add_ptr + c, mask=c_ok, other=0.0)
-    offs = p.to(tl.int64)[:, None] * channels + c[None, :]
-    mask = (p < pixels)[:, None] & c_ok[None, :]
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    y = (x - shift[None, :]) * mul[None, :] + add[None, :]
-    if HAS_RES:
-        y = y + tl.load(res_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    if RELU:
-        y = tl.maximum(y, 0.0)
-    tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
+def _fn():
+    """The C entry point, built and bound at first use, with the current
+    stream's reader."""
+    global _entry, _stream
+    if _entry is None:
+        fn = _build.load("bn_act").bn_act
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
+        fn.restype = ctypes.c_int
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        _stream = raw if raw is not None else (
+            lambda d: torch.cuda.current_stream(d).cuda_stream)
+        _entry = fn
+    return _entry

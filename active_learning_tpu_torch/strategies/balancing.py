@@ -9,13 +9,16 @@ centroid, is smallest (kernel H, ``ops/balancing.py``); otherwise pick
 uniformly at random from the numpy rng, one ``rng.choice`` per pick as
 the JAX package draws it.
 
-The pool's embeddings and the eligibility mask go to the device once, at
-the first balancing pick (a query that stays random never uploads them).
-Each balancing pick then sends one float32 [D] centroid row (after the
-first pick's whole [C, D]), the [C] majority mask and two scalars, and
-reads back one index: the class bookkeeping stays on the host, because
-the label-peeking update makes the pick loop serial.  Centroid sums
-accumulate in float64 and go down as float32, as in the JAX package.
+The pool's embeddings, the eligibility mask and the class centroids go
+to the device once, into a ``BalancingState`` (``ops/balancing.py``), at
+the first balancing pick (a query that stays random never uploads
+them).  After it every pick of either branch is one ``take`` (the row
+leaves the eligible set, its class's centroid changes), queued on the
+host, and every balancing pick one ``pick``: the queue and the [C]
+majority mask in one copy, at most two launches, one read of the index.
+The class bookkeeping stays on the host, because the label-peeking
+update makes the pick loop serial.  Centroid sums accumulate in float64
+and go down as float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.balancing import balancing_pick
+from ..ops.balancing import BalancingState
 from .base import Strategy, register_strategy
 
 
@@ -58,7 +61,7 @@ class BalancingSampler(Strategy):
         embeddings = self._all_embeddings()
         n_classes = self.num_classes
         dev = self.trainer.device
-        emb_dev = eligible_dev = centers_dev = None
+        state = None
 
         def center_row(c: int) -> np.ndarray:
             return (sums[c] / (counts[c] + 1e-5)).astype(np.float32)
@@ -70,42 +73,43 @@ class BalancingSampler(Strategy):
         np.add.at(sums, ys[labeled], embeddings[labeled])
 
         selected = []
-        for query_count in range(budget):
-            mean_count = counts.mean()
-            maj = counts > mean_count
-            minor = ~maj
-            avg_maj = counts[maj].sum() / max(maj.sum(), 1)
-            avg_minor = counts[minor].sum() / max(minor.sum(), 1)
+        try:
+            for query_count in range(budget):
+                mean_count = counts.mean()
+                maj = counts > mean_count
+                minor = ~maj
+                avg_maj = counts[maj].sum() / max(maj.sum(), 1)
+                avg_minor = counts[minor].sum() / max(minor.sum(), 1)
 
-            remaining = budget - query_count
-            if remaining <= minor.sum() * (avg_maj - avg_minor):
-                if emb_dev is None:
-                    emb_dev = torch.from_numpy(np.ascontiguousarray(
-                        embeddings, dtype=np.float32)).to(dev)
-                    eligible_dev = torch.from_numpy(idxs_for_query).to(dev)
-                if centers_dev is None:
-                    centers_dev = torch.from_numpy(np.stack(
-                        [center_row(i) for i in range(n_classes)])).to(dev)
-                rarest = int(np.argmin(counts))
-                query_idx = int(balancing_pick(
-                    emb_dev, eligible_dev, centers_dev,
-                    torch.from_numpy(maj).to(dev), rarest,
-                    counts[rarest] == 0))
-                self.last_balancing_picks += 1
-            else:
-                # Balanced enough: random pick (balancing_sampler.py:126-128).
-                query_idx = int(self.rng.choice(
-                    np.flatnonzero(idxs_for_query)))
+                remaining = budget - query_count
+                if remaining <= minor.sum() * (avg_maj - avg_minor):
+                    if state is None:
+                        state = BalancingState(
+                            torch.from_numpy(np.ascontiguousarray(
+                                embeddings, dtype=np.float32)).to(dev),
+                            torch.from_numpy(idxs_for_query).to(dev),
+                            torch.from_numpy(np.stack(
+                                [center_row(i) for i in range(n_classes)]
+                            )).to(dev))
+                    rarest = int(np.argmin(counts))
+                    query_idx = state.pick(maj, rarest, counts[rarest] == 0)
+                    self.last_balancing_picks += 1
+                else:
+                    # Balanced enough: random pick
+                    # (balancing_sampler.py:126-128).
+                    query_idx = int(self.rng.choice(
+                        np.flatnonzero(idxs_for_query)))
 
-            idxs_for_query[query_idx] = False
-            if eligible_dev is not None:
-                eligible_dev[query_idx] = False
-            c = int(ys[query_idx])
-            counts[c] += 1
-            sums[c] += embeddings[query_idx]
-            if centers_dev is not None:
-                centers_dev[c] = torch.from_numpy(center_row(c)).to(dev)
-            selected.append(query_idx)
+                idxs_for_query[query_idx] = False
+                c = int(ys[query_idx])
+                counts[c] += 1
+                sums[c] += embeddings[query_idx]
+                if state is not None:
+                    state.take(query_idx, c, center_row(c))
+                selected.append(query_idx)
+        finally:
+            if state is not None:
+                state.close()
 
         self.logger.info(f"Number of queried images: {budget}")
         return np.asarray(selected, dtype=np.int64), budget

@@ -8,14 +8,15 @@ stem through all three, and data-parallel training on two ranks
 through the entry points a user calls, and fails (non-zero exit) if any
 phase fails:
 
-1. Build: every CUDA source of the port with nvcc (all at once), and the
-   Triton kernel's variants of the main path.
+1. Build: every CUDA source of the port with nvcc (all at once).
 2. Kernels against their plain PyTorch versions, on the card, at the main
    path's shapes: kernel A (``ops/prob_stats``, CUDA) on B in {8, 64} x
    C in {10, 1000} with forced exact top-2 ties, and kernel B
-   (``ops/bn_act``, Triton) on every BatchNorm shape of the SSLResNet50
+   (``ops/bn_act``, CUDA) on every BatchNorm shape of the SSLResNet50
    forward at B=64, in bf16 and f32, with and without residual.  Each is
-   timed with CUDA events beside its plain version and its bound.
+   timed with CUDA events beside its plain version and its bound; kernel
+   B also by the profiler's kernel events over a forward's 53 calls, and
+   its host time a call.
 3. The slice: full-width SSLResNet50 (224x224x3, 1000 classes, bf16) with
    weights drawn from a numpy seed, published with the port's
    ``publish_best`` into a temporary experiment directory, served by the
@@ -47,7 +48,9 @@ phase fails:
    never aligned with their params), bit-equal at f32 state, within
    1 bf16 ulp at bf16 state.  Kernel C is timed beside its plain
    version (CUDA events, and its device time by the profiler), its
-   bound and ``F.batch_norm(training=True)`` forward + backward; the
+   bound and ``F.batch_norm(training=True)`` forward + backward, and the
+   host time of a training BatchNorm split into kernel B's wrapper,
+   kernel C's wrappers and the rest; the
    port's whole BatchNorm forward + backward (kernels C and B) beside
    ``F.batch_norm`` with the same residual add and ReLU, and the
    kernels one BatchNorm launches forward and backward (at most 3
@@ -104,13 +107,19 @@ phase fails:
     cases (ties to the lower index, ineligible rows, a row on a majority
     centroid).  Picks equal, or the two scores within the stated f32
     bound (printed).  Timed beside its plain version, its bound and the
-    library form (addmm + amax + argmin).
+    library form (addmm + amax + argmin): a ``BalancingState`` pick (+
+    take) by CUDA events, the profiler and the host clock, with the
+    kernels a pick launched (the C entry's count, held against the
+    profiler's).
 12. BalancingSampler at the imbalanced CIFAR sweep's width: full-width
     SSLResNet18 (CIFAR stem, 10 classes, seeded), a 20,431-row 32-px
     pool, 1,000 labeled rows in exp-0.1 proportions, budget 1,000; the
-    query through kernel H, then again with the plain version
-    substituted: picks equal.  Wall time, balancing vs random picks,
-    H's launches, host syncs, peak memory.
+    query through kernel H's ``BalancingState``, then again with the
+    plain version on the state, and in lockstep (kernel H's pick and
+    the plain version's on the same state at every balancing pick).
+    Wall time and the pick loop's share, balancing vs random picks, the
+    runs of consecutive balancing picks, H's picks and launches (at most
+    2 a pick), host syncs, peak memory.
 13. VAAL at the ImageNet sweep's width: full-width SSLResNet50 (224 px,
     default/imagenet, B=128, from scratch) with the VAE at crop 64, z =
     64: ``Trainer.fit`` with the co-step hook over 512 labeled rows (2
@@ -368,11 +377,15 @@ def time_prob_stats(dev):
 
 
 def time_bn_act(dev, calls, detail):
-    """Device time of all BatchNorm calls of one B=64 bf16 forward: the
-    kernel, the plain version and the bound, summed over the calls."""
+    """All BatchNorm calls of one B=64 bf16 forward: the kernel's
+    CUDA-event time (the host's pace where the host is slower), its
+    device time (the profiler's kernel events over a run of the 53
+    calls, whole sessions only), the host time a call (``perf_counter``
+    around the run of 53 calls, not waited for, over 53), the plain
+    version and the bound, summed over the calls."""
     from active_learning_tpu_torch.ops import bn_act as ba
 
-    per = {}
+    per, inputs = {}, {}
     for key in sorted(set(calls)):
         (b, c, h, w), has_res, relu = key
         x = torch.randn(b, c, h, w, device=dev, dtype=torch.bfloat16).to(
@@ -381,6 +394,7 @@ def time_bn_act(dev, calls, detail):
         ones, zeros = (torch.ones(c, device=dev), torch.zeros(c, device=dev))
         coeffs = ba.bn_coefficients(ones, zeros, zeros, ones, 1e-5,
                                     torch.bfloat16, True)
+        inputs[key] = (x, coeffs, r, relu)
         ms = cuda_ms(lambda: ba.bn_act(x, coeffs, r, relu))
         plain = cuda_ms(lambda: ba.bn_act_reference(x, coeffs, r, relu))
         nbytes = x.numel() * 2 * (3 if has_res else 2) + 3 * c * 4
@@ -391,8 +405,26 @@ def time_bn_act(dev, calls, detail):
                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                        "calls_per_forward": calls.count(key)})
     tot = [sum(per[k][i] for k in calls) for i in range(3)]
-    return {"ms": tot[0], "plain_ms": tot[1],
-            "bound_ms": tot[2] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    bound_ms = tot[2] / HBM_BYTES_PER_S * 1e3
+
+    def forward_calls():
+        for key in calls:
+            x, coeffs, r, relu = inputs[key]
+            ba.bn_act(x, coeffs, r, relu)
+
+    before = ba.launches
+    # Floor: half the bound (the small shapes' inputs stay in L2 across
+    # the loop; a reading under half is lost events).
+    dev_ms = profiled_device_ms(forward_calls, 0.5 * bound_ms)[0]
+    if ba.launches == before:
+        raise AssertionError("kernel B was not launched while profiled")
+    host = host_us(forward_calls) / len(calls)
+    log(f"kernel B over a B=64 forward's {len(calls)} calls: CUDA events "
+        f"{tot[0]:.4f} ms, device {dev_ms:.4f} ms (profiler), bound "
+        f"{bound_ms:.4f} ms; host {host:.2f} us a call; plain "
+        f"{tot[1]:.3f} ms")
+    return {"ms": tot[0], "device_ms": dev_ms, "host_us": host,
+            "plain_ms": tot[1], "bound_ms": bound_ms, "bound_by": "bytes"}
 
 
 # -- phase 3: the slice ------------------------------------------------------
@@ -619,6 +651,9 @@ def summarize_profile(prof, steps: int) -> dict:
                          "cudaLaunchKernelExC", "cuLaunchKernelEx"):
                 launch_calls += e.count
     return {"device_ms_per_step": sum(kernels.values()),
+            # Kernel B's variants (residual, ReLU) are separate kernels.
+            "bn_act_ms_per_step": sum(v for k, v in kernels.items()
+                                      if "bn_act_kernel" in k),
             "top_kernels_ms_per_step": sorted(
                 kernels.items(), key=lambda kv: -kv[1])[:15],
             "kernel_launches_per_step": launch_calls / steps,
@@ -854,19 +889,9 @@ def bn_train_bytes(shape, has_res, relu, elem=BF16_BYTES):
 
 def _launches_per_call(fn, reps: int = 4):
     """Kernels one call of ``fn`` ran on the card, by the profiler's
-    count.  Only a complete reading counts (``reps`` calls record
-    ``reps`` times one call's kernels, and one call records some): the
-    profiler loses a session's events now and then; such a
-    reading is taken again, up to three times, then this fails."""
-    seen = []
-    for _ in range(3):
-        one = sum(c for c, _ in _kernel_events(fn, 1).values())
-        many = sum(c for c, _ in _kernel_events(fn, reps).values())
-        if one and many == reps * one:
-            return one
-        seen.append((one, many))
-    raise AssertionError(f"the profiler lost kernel events in every "
-                         f"session (one call, {reps} calls): {seen}")
+    count over ``reps`` calls (a complete reading: ``_complete_events``)."""
+    events, _ = _complete_events(fn, reps)
+    return sum(c for c, _ in events.values()) // reps
 
 
 def time_bn_train(dev, calls, detail):
@@ -986,6 +1011,61 @@ def time_bn_train(dev, calls, detail):
             "launches_per_bn_forward": fwd, "launches_per_bn_backward": bwd}
 
 
+def bn_host_split(dev, calls):
+    """Host time of a training BatchNorm forward + backward
+    (``perf_counter``, the card not waited for), by part: kernel B's
+    wrapper, kernel C's three wrappers, and the rest (autograd, the
+    Function, allocations); means over the calls of one B=128 step.
+    Taken after ``time_bn_train``'s profiled readings: in one run the
+    profiler sessions right after such host loops lost most events."""
+    from active_learning_tpu_torch.ops import bn_act as ba
+    from active_learning_tpu_torch.ops import bn_train as bt
+
+    split = {}
+    for key in sorted(set(calls)):
+        shape, has_res, relu = key
+        x, gy, scale = _kernel_c_inputs(shape, torch.bfloat16, dev, 7)
+        c = shape[1]
+        y = (torch.relu(x.float() - 1.0).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last) if relu else None)
+        bias = torch.zeros(c, device=dev)
+        running = (torch.zeros(c, device=dev), torch.ones(c, device=dev))
+        mean, mean2, _, coeffs = bt.bn_forward_stats(x, scale, bias, 1e-5,
+                                                     True)
+        res = torch.randn_like(x) if has_res else None
+
+        def wrappers():
+            bt.bn_forward_stats(x, scale, bias, 1e-5, True, running)
+            _, _, mul, c2, c1 = bt.bn_backward(gy, x, y, scale, mean, mean2,
+                                               1e-5, True)
+            bt.bn_dx(gy, x, y, mul, c2, c1, has_res)
+
+        xg = x.detach().requires_grad_(True)
+        w = scale.detach().requires_grad_(True)
+        b = torch.zeros(c, device=dev, requires_grad=True)
+        rg = res.requires_grad_(True) if has_res else None
+        wrt = (xg, w, b) + (() if rg is None else (rg,))
+
+        def whole():
+            out = bt.bn_train(xg, w, b, 1e-5, True, rg, relu, None,
+                              running)[0]
+            torch.autograd.grad(out, wrt, gy)
+
+        split[key] = (host_us(whole), host_us(wrappers),
+                      host_us(lambda: ba.bn_act(x, coeffs, res, relu)))
+        del x, gy, y, xg, res, rg
+        torch.cuda.empty_cache()
+    host = [sum(split[k][i] for k in calls) / len(calls) for i in range(3)]
+    out = {"whole_us": host[0], "bn_act_us": host[2],
+           "bn_train_wrappers_us": host[1],
+           "rest_us": host[0] - host[1] - host[2]}
+    log(f"host time a training BatchNorm (forward + backward, mean of "
+        f"{len(calls)} calls): {host[0]:.1f} us, of it kernel B's wrapper "
+        f"{host[2]:.1f}, kernel C's wrappers {host[1]:.1f}, the rest "
+        f"{out['rest_us']:.1f}")
+    return out
+
+
 def _sgd_leaves(dev, state_dtype, seed, dataset="imagenet",
                 model_name="SSLResNet50"):
     from active_learning_tpu_torch.models.factory import get_network
@@ -1097,37 +1177,47 @@ def _kernel_events(fn, reps: int):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def _complete_events(fn, reps: int):
+    """The profiler's events over ``reps`` calls of ``fn`` from a session
+    known complete, and the sessions discarded.  A session counts only
+    when every kernel's (and copy's) count is a multiple of ``reps`` and
+    equals the counts of the session before it: the profiler loses a
+    session's events now and then (on the card, a profile of one call
+    has recorded none or some of its kernels, after a long profiled
+    window one session lost one kernel of 20 calls, and the sessions
+    right after host-time loops have lost most kernels at first), so a
+    reading is taken again, up to eight sessions; then this fails."""
+    seen, prev = [], None
+    for _ in range(8):
+        events = _kernel_events(fn, reps)
+        counts = {k: c for k, (c, _) in events.items()}
+        if (events and counts == prev
+                and all(c % reps == 0 for c in counts.values())):
+            return events, max(len(seen) - 1, 0)
+        seen.append(counts)
+        prev = counts
+    raise AssertionError(f"the profiler lost kernel events in every "
+                             f"session ({reps} calls each): {seen}")
+
+
 def profiled_device_ms(fn, floor_ms: float, reps: int = 20,
                        warmup: int = 3):
     """Device time per call of ``fn`` from torch.profiler's kernel
-    events (the sum over every kernel the calls ran), that time by
-    kernel name, and the number of sessions discarded.  Only a complete
-    reading counts: each kernel's events must number ``reps`` times its
-    count in a profile of one call.  A session that lost events (on the
-    card, after a long profiled window, one lost one kernel of 20 calls)
-    is discarded and taken again, up to three sessions; then this
-    fails.  It also fails when the time is under ``floor_ms``, the
-    work's bytes bound: lost events or skipped work."""
+    events (the sum over every kernel and copy the calls ran), that time
+    by name, and the number of sessions discarded; only a complete
+    reading counts (``_complete_events``).  It also fails when the time
+    is under ``floor_ms``, the work's bytes bound: lost events or skipped
+    work."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    seen = []
-    for _ in range(3):
-        one = {k: c for k, (c, _) in _kernel_events(fn, 1).items()}
-        events = _kernel_events(fn, reps)
-        counts = {k: c for k, (c, _) in events.items()}
-        if events and counts == {k: reps * c for k, c in one.items()}:
-            break
-        seen.append((one, counts))
-    else:
-        raise AssertionError(f"the profiler lost kernel events in every "
-                             f"session (one call, {reps} calls): {seen}")
+    events, lost = _complete_events(fn, reps)
     by_name = {k: us / 1e3 / reps for k, (_, us) in events.items()}
     ms = sum(by_name.values())
     if ms < floor_ms:
         raise AssertionError(f"device time {ms:.4f} ms a call is under the "
                              f"bytes bound {floor_ms:.4f} ms")
-    return ms, by_name, len(seen)
+    return ms, by_name, lost
 
 
 def host_us(fn, reps: int = 50, warmup: int = 3):
@@ -1290,7 +1380,8 @@ def run_fit_path(dev, steps_profiled: int = 5, model_name="SSLResNet50",
     out["device_busy_share"] = busy / prof_wall
     log(f"train step at B={bs}: {step_ms:.2f} ms ({out['rows_per_s']:.1f} "
         f"rows/s); profiled {prof_wall:.2f} ms wall, {busy:.2f} ms device "
-        f"busy ({out['device_busy_share']:.0%})")
+        f"busy ({out['device_busy_share']:.0%}); kernel B "
+        f"{out['bn_act_ms_per_step']:.3f} ms of it")
     for name, ms in out["top_kernels_ms_per_step"][:8]:
         log(f"  {ms:8.3f} ms  {name[:100]}")
     log(f"host: {out['kernel_launches_per_step']:.0f} kernel launches per "
@@ -2261,10 +2352,11 @@ def recording_kernel_inputs(targets=None, keep=None):
     """Within the context, the kernel entry points ``targets`` ((module,
     name) pairs; by default kernels E, F and G's as the strategies call
     them) keep a copy of their inputs, taken before the call (E updates
-    min_dist and selectable in place), for the first call of each
-    distinct argument shape that ``keep(name, args)`` accepts (all by
-    default); launches are counted as always.  Yields {entry point:
-    [args, ...]}."""
+    min_dist and selectable in place; kernel H's ``BalancingState.pick``,
+    name "pick", records (emb, eligible, centers, maj, rarest,
+    rare_empty) just after it), for the first call of each distinct
+    argument shape that ``keep(name, args)`` accepts (all by default);
+    launches are counted as always.  Yields {entry point: [args, ...]}."""
     import contextlib
 
     from active_learning_tpu_torch.ops import kcenter as kc
@@ -2279,12 +2371,34 @@ def recording_kernel_inputs(targets=None, keep=None):
     seen = set()
 
     def wrap(name, fn):
+        if name == "pick":
+            return recorded_pick(fn)
+
         def recorded(*args, **kwargs):
             key = (name, _sig(args))
             if key not in seen and (keep is None or keep(name, args)):
                 seen.add(key)
                 calls[name].append(_copy(args))
             return fn(*args, **kwargs)
+        return recorded
+
+    def recorded_pick(fn):
+        """Kernel H's ``BalancingState.pick``: its inputs as the kernel
+        saw them, the state's tensors just after the pick (the update
+        kernel applied the queued takes; the fold changes nothing)."""
+        def recorded(state, maj, rarest, rare_empty):
+            row = fn(state, maj, rarest, rare_empty)
+            key = ("pick", (tuple(state.emb.shape), tuple(
+                state.centers.shape), int(rarest), bool(rare_empty)))
+            if key not in seen:
+                args = (state.emb, state.eligible, state.centers,
+                        torch.from_numpy(np.asarray(maj, dtype=bool)).to(
+                            state.emb.device), int(rarest),
+                        bool(rare_empty))
+                if keep is None or keep("pick", args):
+                    seen.add(key)
+                    calls["pick"].append(_copy(args))
+            return row
         return recorded
 
     @contextlib.contextmanager
@@ -2447,6 +2561,88 @@ def _hold_pick(args, rare_empty, where, detail, path):
     return gap
 
 
+def _time_state_picks(args, reps):
+    """A ``BalancingState`` on these inputs, as the sampler's loop runs
+    it (a pick, then a take of its row): the CUDA-event time of a pick
+    (the block's copy, the two kernels and the wait for the row), its
+    host time (``perf_counter``), its device time (the profiler's events:
+    copy, update and fold), and the kernels a pick launched by the C
+    entry's count, held against the profiler's kernel events: never more
+    than the count (the profiler can lose events, not make them), equal
+    in a session that holds every call's events, and at most 2."""
+    from active_learning_tpu_torch.ops import balancing as ob
+
+    emb, eligible, centers, maj, rarest = args
+    majn = maj.cpu().numpy()
+    rows = centers.cpu().numpy()
+    state = ob.BalancingState(emb, eligible.clone(), centers.clone())
+    step = {"i": 0}
+
+    def pick_and_take():
+        i = step["i"] = step["i"] + 1
+        row = state.pick(majn, rarest, False)
+        state.take(row, i % rows.shape[0], rows[i % rows.shape[0]])
+
+    ms = cuda_ms(pick_and_take, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pick_and_take()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    picks0, kernels0 = ob.launches, ob.kernel_launches
+    device, profiled = _device_ms_a_call(pick_and_take, reps, 3)
+    counted = (ob.kernel_launches - kernels0) / (ob.launches - picks0)
+    state.close()
+    whole = [k for n, k in profiled if n == reps * 3]
+    if (counted > 2 or any(k > counted * reps for _, k in profiled)
+            or any(k != counted * reps for k in whole)):
+        raise AssertionError(f"kernel H: {counted} kernels a pick by the C "
+                             f"entry's count; the profiler's sessions "
+                             f"(events, kernel events) over {reps} picks: "
+                             f"{profiled}")
+    return {"ms": ms, "host_us": host, "device_ms": device,
+            "kernels_per_pick": counted,
+            "profiled_kernels_per_pick": whole[0] / reps if whole else None}
+
+
+def _device_ms_a_call(fn, reps, per_call):
+    """Device time of one call of ``fn`` (kernels and copies) from a
+    profile of ``reps`` calls, counted only from a session that holds
+    ``per_call`` events a call; up to eight sessions.  Also each
+    session's (events, kernel events).  The profiler's schedule records
+    a first run of ``reps`` calls and discards it: in an unscheduled
+    profile of kernel H's picks at the CIFAR widths every session of a
+    run has lacked the same 11 events (4 copies and 7 kernels, the
+    first three and a half picks' worth).  The time is None (not
+    measured, logged, and listed in the kernels line's
+    ``failed_measurements``) when every session lost events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    seen = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        n = sum(e.count for e in events)
+        seen.append((n, sum(e.count for e in events
+                            if not e.key.startswith(("Memcpy", "Memset")))))
+        if n == reps * per_call:
+            ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+            return ms, seen
+    log(f"device time not measured: the profiler lost events in every "
+        f"session ((events, kernel events) {seen}, {reps * per_call} events "
+        f"expected)")
+    return None, seen
+
+
 def check_balancing(dev, detail):
     """Kernel H at the three phase-11 shapes and the edge cases, timed
     beside its plain version, its bound and the library form (addmm +
@@ -2478,7 +2674,7 @@ def check_balancing(dev, detail):
 
         reps = 10 if n * c > 10 ** 7 else N_TIMED
         n_maj = int(maj.sum())
-        times = {"ms": cuda_ms(lambda: ob.balancing_pick(*args, False), reps),
+        times = {**_time_state_picks(args, reps),
                  "plain_ms": cuda_ms(
                      lambda: ob.balancing_pick_reference(*args, False), reps),
                  "library_ms": cuda_ms(library, reps),
@@ -2486,10 +2682,15 @@ def check_balancing(dev, detail):
                           2.0 * n * d * (n_maj + 1)),
                  "majority_classes": n_maj}
         by_shape[where] = times
-        log(f"kernel H at {where} ({n_maj} majority classes): "
-            f"{times['ms']:.4f} ms (plain {times['plain_ms']:.4f}, library "
-            f"{times['library_ms']:.4f}, bound {times['bound_ms']:.4f} by "
-            f"{times['bound_by']})")
+        log(f"kernel H at {where} ({n_maj} majority classes): a "
+            f"BalancingState pick (+ take) {times['ms']:.4f} ms by CUDA "
+            f"events, the wait for the row included (device "
+            f"{times['device_ms']} ms by the profiler: copy, update and "
+            f"fold; host {times['host_us']:.1f} us; "
+            f"{times['kernels_per_pick']} kernels a pick, "
+            f"{times['profiled_kernels_per_pick']} by the profiler); plain "
+            f"{times['plain_ms']:.4f}, library {times['library_ms']:.4f}, "
+            f"bound {times['bound_ms']:.4f} by {times['bound_by']}")
         if i == 0:
             # Edge cases at the imbalanced CIFAR width.
             emb, eligible, centers, maj, rarest = (
@@ -2528,8 +2729,8 @@ def check_balancing(dev, detail):
 # -- phase 12: BalancingSampler at the imbalanced CIFAR sweep's width ---------
 
 def _h_targets():
-    from active_learning_tpu_torch.strategies import balancing as sb
-    return [(sb, "balancing_pick")]
+    from active_learning_tpu_torch.ops import balancing as ob
+    return [(ob.BalancingState, "pick")]
 
 
 def _bc_targets():
@@ -2541,17 +2742,16 @@ def _bc_targets():
 
 def check_recorded_h(calls, detail, path):
     """Kernel H against its plain version on the inputs a path gave it."""
-    if not calls["balancing_pick"]:
+    if not calls["pick"]:
         raise AssertionError(f"path {path}: no call of kernel H recorded")
     worst = 0.0
-    for emb, eligible, centers, maj, rarest, rare_empty in \
-            calls["balancing_pick"]:
+    for emb, eligible, centers, maj, rarest, rare_empty in calls["pick"]:
         where = (f"{path} N={emb.shape[0]} D={emb.shape[1]} "
                  f"C={centers.shape[0]}")
         worst = max(worst, _hold_pick((emb, eligible, centers, maj, rarest),
                                       rare_empty, where, detail, path))
     log(f"kernel H held at the {path} path's "
-        f"{len(calls['balancing_pick'])} recorded inputs: max score gap "
+        f"{len(calls['pick'])} recorded inputs: max score gap "
         f"{worst:.3g}")
     return worst
 
@@ -2649,12 +2849,16 @@ def run_balancing_path(dev, n_pool=20431, n_lab=1000, budget=1000):
     full-width SSLResNet18 (CIFAR stem, 10 classes, bf16, seeded), a
     synthetic 32-px pool of ``n_pool`` rows, ``n_lab`` labeled rows with
     the exp-0.1 class proportions, budget ``budget``.  Run once through
-    kernel H (counters zeroed before, read after; H's inputs recorded),
-    then twice more from the same state: with the plain version
-    substituted, and in lockstep (kernel H's pick taken, the plain
-    version's on the same state beside it).  Every lockstep
+    kernel H's ``BalancingState`` (counters zeroed before, read after;
+    H's inputs recorded), then twice more from the same state: with the
+    plain version on the state (``pick_reference``), and in lockstep
+    (kernel H's pick taken, the plain version's on the same state's
+    tensors beside it, at every balancing pick).  Every lockstep
     disagreement must be a float32 near-tie within ``score_tolerance``;
-    the plain run's picks are reported equal, or where they part."""
+    the plain run's picks are reported equal, or where they part.  The
+    pick loop's time (the query's wall less its scoring pass), the
+    launches a pick (at most 2) and the lengths of the runs of
+    consecutive balancing picks are reported."""
     from active_learning_tpu_torch import ops
     from active_learning_tpu_torch.config import ExperimentConfig
     from active_learning_tpu_torch.data.synthetic import get_data_synthetic
@@ -2694,34 +2898,65 @@ def run_balancing_path(dev, n_pool=20431, n_lab=1000, budget=1000):
         strat.update(lab, len(lab))
         return strat
 
-    embs, steps = {}, []
+    embs, steps, mismatches, runs_of = {}, [], [], []
 
-    def lockstep(*args):
-        """Kernel H's pick, with the plain version's on the same state
-        beside it; a disagreement is recorded with both plain scores."""
-        got = ob.balancing_pick(*args)
-        want = int(ob.balancing_pick_reference(*args))
-        steps.append(int(got) == want)
-        if int(got) != want:
-            emb, eligible, centers, maj, rarest, rare_empty = args
-            scores = ob.balancing_scores_reference(*args)
-            bound = ob.score_tolerance(emb, centers, maj, rarest, rare_empty)
-            # The two rows' scores in float64: which one is the exact
-            # argmin.
-            rows = torch.tensor([int(got), want], device=emb.device)
-            exact = ob.balancing_scores_reference(
-                emb[rows].double(), eligible[rows], centers.double(), maj,
-                rarest, rare_empty)
-            mismatches.append({
-                "balancing_pick": len(steps), "pick": int(got),
-                "plain_pick": want, "score": float(scores[int(got)]),
-                "plain_score": float(scores[want]),
-                "gap": float((scores[int(got)] - scores[want]).abs()),
-                "bound": float(bound[int(got)] + bound[want]),
-                "float64_scores": [float(v) for v in exact]})
-        return got
+    class PlainState(ob.BalancingState):
+        """The plain version on the same state, at every pick."""
 
-    mismatches = []
+        def pick(self, maj, rarest, rare_empty):
+            return self.pick_reference(maj, rarest, rare_empty)
+
+    class LockstepState(ob.BalancingState):
+        """Kernel H's pick, with the plain version's on the state's
+        tensors as the kernel saw them beside it; a disagreement is
+        recorded with both plain scores.  Also counts the runs of
+        consecutive balancing picks (a take with no pick before it is a
+        random pick)."""
+        run = 0
+        after_pick = False
+
+        def pick(self, maj, rarest, rare_empty):
+            got = super().pick(maj, rarest, rare_empty)
+            self.run += 1
+            self.after_pick = True
+            args = (self.emb, self.eligible, self.centers,
+                    torch.from_numpy(np.asarray(maj, dtype=bool)).to(dev),
+                    int(rarest), bool(rare_empty))
+            want = int(ob.balancing_pick_reference(*args))
+            steps.append(got == want)
+            if got != want:
+                emb, eligible, centers, majt, _, _ = args
+                scores = ob.balancing_scores_reference(*args)
+                bound = ob.score_tolerance(emb, centers, majt, int(rarest),
+                                           bool(rare_empty))
+                # The two rows' scores in float64: which one is the exact
+                # argmin.
+                rows = torch.tensor([got, want], device=emb.device)
+                exact = ob.balancing_scores_reference(
+                    emb[rows].double(), eligible[rows], centers.double(),
+                    majt, int(rarest), bool(rare_empty))
+                mismatches.append({
+                    "balancing_pick": len(steps), "pick": got,
+                    "plain_pick": want, "score": float(scores[got]),
+                    "plain_score": float(scores[want]),
+                    "gap": float((scores[got] - scores[want]).abs()),
+                    "bound": float(bound[got] + bound[want]),
+                    "float64_scores": [float(v) for v in exact]})
+            return got
+
+        def take(self, row, cls, center_row):
+            if not self.after_pick and self.run:
+                runs_of.append(self.run)
+                self.run = 0
+            self.after_pick = False
+            super().take(row, cls, center_row)
+
+        def close(self):
+            if self.run:
+                runs_of.append(self.run)
+                self.run = 0
+            super().close()
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bal_") as tmp:
         strat = strategy(tmp)
         real = strat._all_embeddings
@@ -2738,37 +2973,52 @@ def run_balancing_path(dev, n_pool=20431, n_lab=1000, budget=1000):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_kernel_launches()
-        with recording_kernel_inputs(_h_targets()) as calls:
-            t0 = time.perf_counter()
-            picks, cost = strat.query(budget)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        real_pick, pick_s = ob.BalancingState.pick, [0.0]
+
+        def timed_pick(state, *args):
+            t = time.perf_counter()
+            row = real_pick(state, *args)
+            pick_s[0] += time.perf_counter() - t
+            return row
+
+        ob.BalancingState.pick = timed_pick
+        try:
+            with recording_kernel_inputs(_h_targets()) as calls:
+                t0 = time.perf_counter()
+                picks, cost = strat.query(budget)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            ob.BalancingState.pick = real_pick
         launches = ops.kernel_launches()
+        device_launches = ob.kernel_launches
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         n_bal = strat.last_balancing_picks
         batches = -(-n_pool // strat._score_batch_size())
         runs = {}
-        for name, fn in (("plain", ob.balancing_pick_reference),
-                         ("lockstep", lockstep)):
+        for name, cls in (("plain", PlainState), ("lockstep", LockstepState)):
             again = strategy(tmp)
             again._all_embeddings = lambda: embs["e"]
-            sb.balancing_pick = fn
+            sb.BalancingState = cls
             try:
                 t0 = time.perf_counter()
                 runs[name] = np.asarray(again.query(budget)[0])
                 torch.cuda.synchronize()
                 runs[name + "_wall"] = time.perf_counter() - t0
             finally:
-                sb.balancing_pick = ob.balancing_pick
+                sb.BalancingState = ob.BalancingState
             del again
     picks = np.asarray(picks)
     if not (cost == budget == np.unique(picks).size and avail[picks].all()):
         raise AssertionError(f"balancing query: {cost} picks, "
                              f"{np.unique(picks).size} distinct")
     on_card = dev.type == "cuda"  # a CPU rehearsal launches nothing
-    if launches["balancing_pick"] != (n_bal if on_card else 0) or n_bal < 1:
+    if (launches["balancing_pick"] != (n_bal if on_card else 0) or n_bal < 1
+            or device_launches > 2 * launches["balancing_pick"]):
         raise AssertionError(f"balancing query: {n_bal} balancing picks, "
-                             f"kernel H launches {launches}")
+                             f"kernel H picks {launches['balancing_pick']} "
+                             f"with {device_launches} launches (at most 2 "
+                             f"a pick)")
     for m in mismatches:
         log(f"balancing query: at balancing pick {m['balancing_pick']} "
             f"kernel H picks row {m['pick']} (plain score {m['score']!r}), "
@@ -2796,20 +3046,27 @@ def run_balancing_path(dev, n_pool=20431, n_lab=1000, budget=1000):
            f"follows the same picks up to pick {first}, then its own "
            "trajectory"))
     picked = np.bincount(targets[picks], minlength=10)
-    out = {"wall_s": wall, "plain_wall_s": runs["plain_wall"],
+    loop_s = wall - embs["scoring_s"]
+    out = {"wall_s": wall, "pick_loop_s": loop_s, "in_pick_s": pick_s[0],
+           "plain_wall_s": runs["plain_wall"],
            "plain_picks_equal": plain_equal, "plain_first_difference": first,
            "lockstep_disagreements": mismatches, "budget": budget,
            "balancing_picks": n_bal, "random_picks": budget - n_bal,
            "host_syncs": n_bal + batches, "scoring_batches": batches,
-           "scoring_s": embs["scoring_s"],
+           "scoring_s": embs["scoring_s"], "device_launches": device_launches,
+           "balancing_runs": runs_of,
            "peak_gib": peak, "launches": launches,
            "picked_per_class": picked.tolist()}
     log(f"balancing query: {budget} picks over {int(avail.sum())} rows in "
-        f"{wall:.2f} s (scoring pass {embs['scoring_s']:.2f} s; {n_bal} "
-        f"balancing, {budget - n_bal} random; kernel H "
-        f"launches {launches['balancing_pick']}; host syncs {n_bal} picks + "
+        f"{wall:.2f} s (scoring pass {embs['scoring_s']:.2f} s, pick loop "
+        f"{loop_s:.3f} s, {pick_s[0]:.3f} s of it inside the "
+        f"{n_bal} BalancingState.pick calls, the wait for the row "
+        f"included; {n_bal} balancing, {budget - n_bal} random; "
+        f"kernel H picks {launches['balancing_pick']} with "
+        f"{device_launches} launches; host syncs {n_bal} picks + "
         f"{batches} scoring batches; peak {peak:.2f} GiB); picked per class "
-        f"{picked.tolist()}")
+        f"{picked.tolist()}; runs of consecutive balancing picks "
+        f"({len(runs_of)}): {runs_of}")
     del model, data, strat
     torch.cuda.empty_cache()
     return out, calls
@@ -4063,6 +4320,21 @@ def check_nccl_world1(dev):
     return {"mesh": desc, "checks": checks}
 
 
+def _unmeasured(entry: dict, where: str = "") -> list:
+    """The time readings of a kernels-line entry that came back None (a
+    profiler reading whose every session lost events), by key path; a
+    kernel with no library call has ``library_ms`` None by design."""
+    out = []
+    for key, v in entry.items():
+        path = f"{where}{key}"
+        if isinstance(v, dict):
+            out += _unmeasured(v, f"{path}.")
+        elif (v is None and (key == "ms" or key.endswith(("_ms", "_us")))
+              and path != "library_ms"):
+            out.append(path)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--detail", default=None,
@@ -4090,7 +4362,7 @@ def main() -> int:
     t0 = time.perf_counter()
     calls = bn_calls_of_forward(model, x)
     torch.cuda.synchronize()
-    log(f"Triton build + first bf16 forward: {time.perf_counter() - t0:.1f} s"
+    log(f"first bf16 forward: {time.perf_counter() - t0:.1f} s"
         f" ({len(calls)} BatchNorm calls per forward, bn_act launches "
         f"{ba.launches})")
     del model, x
@@ -4119,6 +4391,7 @@ def main() -> int:
         f"max err {err_b:.3g}, bn_train dx max err {err_c:.3g} "
         f"({time.perf_counter() - t0:.1f} s)")
     times_c = time_bn_train(dev, train_calls, detail)
+    times_b["bn_train_host_split"] = bn_host_split(dev, train_calls)
     sgd = check_fused_sgd(dev, detail)
     err_d = max(max(v["param_err"], v["trace_err"]) for v in sgd.values())
     times_d = time_fused_sgd(dev)
@@ -4261,8 +4534,8 @@ def main() -> int:
          "replaces": "active_learning_tpu/strategies/scoring.py:109",
          **count("prob_stats"), "max_abs_err": err_a,
          **times_a, "library_ms": None},
-        {"name": "bn_act", "route": "triton",
-         "source": "active_learning_tpu_torch/ops/bn_act.py",
+        {"name": "bn_act", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/bn_act.cu",
          "replaces": "active_learning_tpu/models/resnet.py:190",
          **count("bn_act"), "max_abs_err": err_b,
          **times_b, "library_ms": None},
@@ -4299,7 +4572,9 @@ def main() -> int:
          "source": "active_learning_tpu_torch/csrc/balancing.cu",
          "replaces": "active_learning_tpu/strategies/balancing.py:61",
          **count("balancing_pick"), "max_abs_err": err_h, **times_h,
-         "ms_by_shape": times_h_by_shape},
+         "ms_by_shape": times_h_by_shape,
+         "launches_per_pick": balancing["device_launches"]
+         / max(balancing["launches"]["balancing_pick"], 1)},
         {"name": "stem_dw", "route": "cuda",
          "source": "active_learning_tpu_torch/csrc/stem_dw.cu",
          "replaces": "active_learning_tpu/ops/backward.py:104",
@@ -4320,6 +4595,10 @@ def main() -> int:
         if k["launches"] < 1:
             raise AssertionError(f"kernel {k['name']} never launched on the "
                                  "main paths")
+        failed = _unmeasured(k)
+        if failed:
+            k["failed_measurements"] = failed
+            log(f"kernel {k['name']}: not measured in this run: {failed}")
     if args.detail:
         os.makedirs(os.path.dirname(os.path.abspath(args.detail)),
                     exist_ok=True)

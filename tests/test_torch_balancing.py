@@ -14,6 +14,11 @@ on the CPU.
   ``tests/test_clustering_balancing.py``) pick, through both branches,
   on the same embeddings, labeled set and rng state; the rng ends in
   the same state.
+* ``BalancingState`` on CPU tensors picks what a fresh
+  ``balancing_pick_reference`` picks on tensors rebuilt from the same
+  takes, over mixed sequences of takes and picks (runs of takes without
+  a pick, as the random branch makes them, and a rarest class that
+  starts empty), and refuses takes and masks it cannot hold.
 * ``freeze_feature`` caches the embeddings.
 """
 
@@ -148,6 +153,90 @@ def test_wrapper_checks_its_arguments():
         bal.balancing_pick(emb, eligible[:-1], centers, maj, 0, False)
     with pytest.raises(ValueError, match="maj"):
         bal.balancing_pick(emb, eligible, centers, maj.int(), 0, False)
+
+
+# -- BalancingState --------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d,c", [(300, 16, 5), (500, 33, 12),
+                                   (257, 8, 40)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_state_picks_what_the_plain_version_picks_on_rebuilt_tensors(
+        n, d, c, seed):
+    """A loop of the sampler's shape on a CPU state: every step takes a
+    row (after a pick, the picked row; else a random eligible one, in
+    runs), with its class's center moved; every pick is held against
+    ``balancing_pick_reference`` on tensors rebuilt from the takes alone.
+    Class 0 has no labeled row until its first take (rare_empty)."""
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(n, d)).astype(np.float32)
+    eligible = rng.random(n) > 0.2
+    centers = rng.normal(size=(c, d)).astype(np.float32)
+    counts = rng.integers(1, 20, size=c)
+    counts[0] = 0
+    state = bal.BalancingState(torch.from_numpy(emb.copy()),
+                               torch.from_numpy(eligible.copy()),
+                               torch.from_numpy(centers.copy()))
+    picks = 0
+    for step in range(60):
+        if step % 7 < 4:  # a balancing pick, then its take
+            maj = counts > counts.mean()
+            rarest = int(np.argmin(counts))
+            got = state.pick(maj, rarest, counts[rarest] == 0)
+            want = int(bal.balancing_pick_reference(
+                torch.from_numpy(emb), torch.from_numpy(eligible),
+                torch.from_numpy(centers), torch.from_numpy(maj), rarest,
+                bool(counts[rarest] == 0)))
+            assert got == want
+            row = got
+            picks += 1
+        else:  # a random pick: a take with no pick
+            row = int(rng.choice(np.flatnonzero(eligible)))
+        cls = int(rng.integers(c))
+        center = rng.normal(size=d).astype(np.float32)
+        eligible[row] = False
+        centers[cls] = center
+        counts[cls] += 1
+        state.take(row, cls, center)
+    assert picks > 30
+    state.pick(counts > counts.mean(), int(np.argmin(counts)), False)
+    np.testing.assert_array_equal(state.eligible.numpy(), eligible)
+    np.testing.assert_array_equal(state.centers.numpy(), centers)
+
+
+def test_state_counts_no_launch_on_the_cpu_and_refuses_bad_input():
+    emb, eligible, centers, maj, rarest = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in _pool(8, 64, 8, 4, 2))
+    before = (bal.launches, bal.kernel_launches)
+    state = bal.BalancingState(emb, eligible.clone(), centers.clone())
+    state.take(3, 1, np.zeros(8, dtype=np.float32))
+    state.pick(maj.numpy(), rarest, False)
+    assert (bal.launches, bal.kernel_launches) == before
+    with pytest.raises(ValueError, match="out of range"):
+        state.take(64, 0, np.zeros(8, dtype=np.float32))
+    with pytest.raises(ValueError, match="out of range"):
+        state.take(0, 4, np.zeros(8, dtype=np.float32))
+    with pytest.raises(ValueError, match="center row"):
+        state.take(0, 0, np.zeros(7, dtype=np.float32))
+    with pytest.raises(ValueError, match="maj"):
+        state.pick(np.zeros(3, dtype=bool), 0, False)
+    with pytest.raises(ValueError, match="rarest"):
+        state.pick(maj.numpy(), 4, False)
+    with pytest.raises(TypeError, match="float32"):
+        bal.BalancingState(emb.double(), eligible, centers)
+
+
+def test_state_on_the_cpu_takes_the_plain_version_after_close():
+    """The plain version is chosen by the tensors' device alone: a CPU
+    state still picks once closed (there is no pinned block to free)."""
+    emb, eligible, centers, maj, rarest = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in _pool(9, 48, 8, 5, 2))
+    state = bal.BalancingState(emb, eligible.clone(), centers.clone())
+    state.close()
+    want = int(bal.balancing_pick_reference(emb, eligible, centers, maj,
+                                            rarest, False))
+    assert state.pick(maj.numpy(), rarest, False) == want
 
 
 # -- the sampler ---------------------------------------------------------------

@@ -96,6 +96,104 @@ def test_wrappers_raise_rather_than_fall_back(cuda_device):
         ba.bn_act(x, coeffs)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _bn_coeffs(dev, c, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return ba.bn_coefficients(
+        torch.rand(c, device=dev, generator=g) + 0.5,
+        torch.randn(c, device=dev, generator=g),
+        torch.randn(c, device=dev, generator=g),
+        torch.rand(c, device=dev, generator=g) + 0.5, 1e-5, dtype,
+        fused_stats=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,offset", [(3, 0), (33, 0), (513, 0), (64, 1)])
+def test_bn_act_scalar_path_matches_plain(cuda_device, dtype, c, offset):
+    """Channel counts no vector width divides, and a channels-last view
+    one element past a 16-byte boundary: the scalar path, bit-equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    numel = 3 * 5 * 7 * c
+    base = torch.randn(numel + offset, device=cuda_device,
+                       generator=g).to(dtype)
+    x = base[offset:].view(3, 5, 7, c).permute(0, 3, 1, 2)
+    r = torch.randn(x.shape, device=cuda_device, generator=g).to(
+        dtype=dtype, memory_format=torch.channels_last)
+    coeffs = _bn_coeffs(cuda_device, c, dtype, c)
+    for res, relu in ((None, False), (r, True)):
+        assert not ba.launch_plan(x, coeffs, res, relu).variant & ba.VEC
+        got = ba.bn_act(x, coeffs, res, relu)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(ba.bn_act_reference(
+            x, coeffs, res, relu)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_act_special_values_bit_for_bit(cuda_device, dtype):
+    """NaN, ±0 and ±inf through the affine, the residual and the ReLU,
+    compared as bits with the plain version (torch.relu on the card):
+    the kernel's ReLU keeps a NaN and treats -0 as torch does."""
+    c = 16
+    vals = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                         -float("inf"), 1.5, -1.5, 3e38], device=cuda_device)
+    x = vals.repeat(2 * 4 * 4 * c // vals.numel()).view(2, 4, 4, c)
+    x = x.permute(0, 3, 1, 2).to(dtype)
+    r = x.flip(0).contiguous(memory_format=torch.channels_last)
+    ones = torch.ones(c, device=cuda_device)
+    zeros = torch.zeros(c, device=cuda_device)
+    # add = -0 keeps a -0 through the affine, so the ReLU sees it.
+    for coeffs in ((zeros, ones, zeros), (zeros, ones, -zeros),
+                   (zeros, -ones, zeros),
+                   _bn_coeffs(cuda_device, c, torch.float32, 3)):
+        for res, relu in ((None, True), (None, False), (r, True),
+                          (r, False)):
+            got = ba.bn_act(x, coeffs, res, relu)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(ba.bn_act_reference(
+                x, coeffs, res, relu)))
+
+
+def test_bn_act_bf16_rounds_half_to_even(cuda_device):
+    """x + 2^-8 for 16 consecutive bf16 values in [1, 2) lies exactly
+    halfway between two bf16 values: the store rounds to the one with an
+    even last bit, as the plain version's cast does."""
+    c = 8
+    steps = torch.arange(16, device=cuda_device, dtype=torch.float32)
+    xs = 1.0 + steps * 2.0 ** -7
+
+    def nhwc(v):
+        return v.view(1, 2, 1, c).permute(0, 3, 1, 2)
+
+    x = nhwc(xs).to(torch.bfloat16)
+    coeffs = (torch.zeros(c, device=cuda_device),
+              torch.ones(c, device=cuda_device),
+              torch.full((c,), 2.0 ** -8, device=cuda_device))
+    got = ba.bn_act(x, coeffs)
+    ref = ba.bn_act_reference(x, coeffs)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(ref))
+    want = nhwc(torch.where(steps % 2 == 1, xs + 2.0 ** -7, xs))
+    assert torch.equal(got.float(), want)
+    assert bool(((_bits(got) & 1) == 0).all())
+
+
+def test_bn_act_on_a_side_stream(cuda_device):
+    """The launch goes on the current stream: x made on a side stream,
+    normalized there, read after that stream alone is waited for."""
+    c = 64
+    coeffs = _bn_coeffs(cuda_device, c, torch.bfloat16, 5)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        x = torch.randn(8, 56, 56, c, device=cuda_device).permute(
+            0, 3, 1, 2).to(torch.bfloat16)
+        got = ba.bn_act(x, coeffs, None, True)
+    side.synchronize()
+    assert torch.equal(got, ba.bn_act_reference(x, coeffs, None, True))
+
+
 def _cl(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous(memory_format=torch.channels_last)
 
@@ -585,13 +683,15 @@ def _bal_pool(dev, n, d, c, n_maj, seed):
     return emb, eligible, centers, maj, rarest
 
 
-def _assert_pick_held(args, rare_empty):
-    """The kernel's pick equals the plain version's, or the two rows'
-    plain scores lie within bal.score_tolerance of each other."""
-    before = bal.launches
-    got = int(bal.balancing_pick(*args, rare_empty))
-    torch.cuda.synchronize()
-    assert bal.launches == before + 1
+def _assert_pick_held(args, rare_empty, got=None):
+    """The kernel's pick (``got``, else the one-shot entry's) equals the
+    plain version's, or the two rows' plain scores lie within
+    bal.score_tolerance of each other."""
+    if got is None:
+        before = bal.launches
+        got = int(bal.balancing_pick(*args, rare_empty))
+        torch.cuda.synchronize()
+        assert bal.launches == before + 1
     want = int(bal.balancing_pick_reference(*args, rare_empty))
     if got != want:
         emb, eligible, centers, maj, rarest = args
@@ -605,12 +705,17 @@ def _assert_pick_held(args, rare_empty):
 
 @pytest.mark.parametrize("n,d,c,n_maj", [
     (20431, 512, 10, 4), (50000, 512, 10, 3), (1000, 2048, 1000, 400),
-    (777, 33, 17, 9), (130, 7, 3, 1), (257, 64, 16, 0)])
+    (777, 33, 17, 9), (130, 7, 3, 1), (257, 64, 16, 0),
+    (3001, 77, 300, 131), (4999, 258, 1000, 407), (129, 2050, 45, 1),
+    (1025, 2048, 31, 0), (2000, 96, 30, 29)])
 @pytest.mark.parametrize("rare_empty", [False, True])
 def test_balancing_kernel_matches_plain(cuda_device, n, d, c, n_maj,
                                         rare_empty):
-    """Both row tiles (C <= 16: 128 x 8, above: 64 x 64), ragged rows and
-    features, no majority class (every score -0)."""
+    """Both paths (C <= 30 with its rows in shared memory: the warp fold;
+    above: the tile GEMM over the compacted majority centers), ragged
+    rows, features (D % 4 != 0: the scalar copies) and majority tiles
+    (odd counts: a partial last tile), no majority class (every score
+    -0)."""
     args = _bal_pool(cuda_device, n, d, c, n_maj, n + c)
     _assert_pick_held(args, rare_empty)
 
@@ -647,6 +752,68 @@ def test_balancing_kernel_edge_cases(cuda_device):
     assert got == want == 0
 
 
+def _state_run(dev, n, d, c, picks, seed, hold_every=True):
+    """A balancing loop on a state on the card: each step picks (or, one
+    step in four, takes a random eligible row as the random branch
+    does), then takes the row and moves its class's center.  After each
+    pick the state's tensors equal ones rebuilt from the takes alone, and
+    the pick is held against the plain version on them."""
+    emb, eligible, centers, _, _ = _bal_pool(dev, n, d, c, 1, seed)
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 50, size=c)
+    counts[int(rng.integers(c))] = 0
+    elig_np = eligible.cpu().numpy().copy()
+    cent_np = centers.cpu().numpy().copy()
+    state = bal.BalancingState(emb, eligible.clone(), centers.clone())
+    before, kbefore = bal.launches, bal.kernel_launches
+    n_picks = 0
+    for step in range(picks):
+        if step % 4 == 3:
+            row = int(rng.choice(np.flatnonzero(elig_np)))
+        else:
+            maj = counts > counts.mean()
+            rarest = int(np.argmin(counts))
+            row = state.pick(maj, rarest, counts[rarest] == 0)
+            n_picks += 1
+            assert np.array_equal(state.eligible.cpu().numpy(), elig_np)
+            assert torch.equal(state.centers.cpu(),
+                               torch.from_numpy(cent_np))
+            if hold_every or step == picks - 1:
+                _assert_pick_held(
+                    (emb, torch.from_numpy(elig_np).to(dev),
+                     torch.from_numpy(cent_np).to(dev),
+                     torch.from_numpy(maj).to(dev), rarest),
+                    bool(counts[rarest] == 0), got=row)
+        cls = int(rng.integers(c))
+        center = (cent_np[cls] + rng.normal(size=d).astype(np.float32)
+                  * 0.1).astype(np.float32)
+        elig_np[row] = False
+        cent_np[cls] = center
+        counts[cls] += 1
+        state.take(row, cls, center)
+    assert bal.launches - before == n_picks
+    assert bal.kernel_launches - kbefore == 2 * n_picks
+    assert int(state._ticket.item()) == 0
+    state.close()
+
+
+@pytest.mark.parametrize("n,d,c", [(20431, 512, 10), (3001, 77, 300),
+                                   (700, 2048, 1000)])
+def test_balancing_state_update_kernel_against_a_rebuilt_state(
+        cuda_device, n, d, c):
+    """The update kernel applies the queued takes (eligibility, centers,
+    every changed b2) as rebuilding the tensors does, on both paths."""
+    _state_run(cuda_device, n, d, c, 24, seed=n)
+
+
+def test_balancing_state_last_block_merge_over_many_picks(cuda_device):
+    """300 picks in a row on one state: the fold's last block merges and
+    resets the ticket every time (a ticket left behind would make no
+    block the last one and the row stale), on both paths."""
+    _state_run(cuda_device, 20431, 512, 10, 300, seed=1, hold_every=False)
+    _state_run(cuda_device, 2000, 64, 64, 100, seed=2, hold_every=False)
+
+
 def test_balancing_wrapper_raises_rather_than_falls_back(cuda_device):
     emb, eligible, centers, maj, rarest = _bal_pool(cuda_device, 64, 8, 4,
                                                     2, 0)
@@ -655,6 +822,23 @@ def test_balancing_wrapper_raises_rather_than_falls_back(cuda_device):
                            eligible, centers, maj, rarest, False)
     with pytest.raises(ValueError, match="one device"):
         bal.balancing_pick(emb, eligible.cpu(), centers, maj, rarest, False)
+
+
+def test_balancing_state_on_the_card_raises_once_closed(cuda_device):
+    """A closed state on the card raises: a CUDA tensor never takes the
+    plain version.  Before that, its pick counts the kernels the C entry
+    launched (the update and the fold)."""
+    emb, eligible, centers, maj, rarest = _bal_pool(cuda_device, 512, 32, 6,
+                                                    2, 3)
+    state = bal.BalancingState(emb, eligible.clone(), centers.clone())
+    before = bal.kernel_launches
+    row = state.pick(maj.cpu().numpy(), rarest, False)
+    assert bal.kernel_launches - before == 2 == state._st.launched
+    _assert_pick_held((emb, eligible, centers, maj, rarest), False, got=row)
+    state.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        state.pick(maj.cpu().numpy(), rarest, False)
+    assert bal.kernel_launches - before == 2
 
 
 # -- kernel I: the s2d stem's weight gradient --------------------------------

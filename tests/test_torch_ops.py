@@ -127,7 +127,7 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 
 def test_build_names_every_source_with_its_hash():
-    assert _build.sources() == ["badge", "balancing", "bn_train",
+    assert _build.sources() == ["badge", "balancing", "bn_act", "bn_train",
                                 "boundary_radii", "fused_sgd", "int8_sync",
                                 "kcenter", "prob_stats", "stem_dw"]
     path = _build.library_path("prob_stats")
@@ -253,6 +253,109 @@ def test_bn_act_requires_channels_last():
         ba.bn_act(xcl.to(torch.float64), coeffs)
     with pytest.raises(ValueError, match="coefficients"):
         ba.bn_act(xcl, tuple(torch.zeros(3) for _ in range(3)))
+
+
+def _replay_walk(x, coeffs, residual, relu, pl, blocks):
+    """Kernel B's walk on the CPU: thread g of ``blocks`` x THREADS
+    keeps channel unit g % upr while g is below the stride (the threads
+    rounded down to a multiple of upr) and takes units g, g + stride,
+    ...; each element goes through the kernel's float32 operations with
+    its thread's coefficients.  Asserts that every unit is taken once."""
+    stride = blocks * ba.THREADS // pl.upr * pl.upr
+    assert stride >= pl.upr
+    owner = np.full(pl.units, -1)
+    chan = np.zeros(pl.units, dtype=np.int64)
+    for g in range(min(stride, pl.units)):
+        us = np.arange(g, pl.units, stride)
+        assert (owner[us] == -1).all()
+        owner[us] = g
+        chan[us] = g % pl.upr
+    assert (owner >= 0).all()
+    b, c, h, w = x.shape
+    idx = torch.from_numpy((chan[:, None] * pl.unit
+                            + np.arange(pl.unit)[None, :]).reshape(-1))
+    acc = torch.promote_types(x.dtype, torch.float32)
+    flat = x.permute(0, 2, 3, 1).reshape(-1).to(acc)  # the NHWC order
+    shift, mul, add = (v[idx] for v in coeffs)
+    y = (flat - shift) * mul + add
+    if residual is not None:
+        y = y + residual.permute(0, 2, 3, 1).reshape(-1).to(acc)
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+# (shape, dtype, residual, relu, unit): vector widths, scalar channel
+# counts, each flag turned in turn, and repeats that must hit the cache.
+PLAN_CASES = [((2, 16, 3, 5), torch.bfloat16, False, True, 8),
+              ((2, 16, 3, 5), torch.bfloat16, True, True, 8),
+              ((2, 16, 3, 5), torch.float32, True, True, 4),
+              ((2, 16, 3, 5), torch.float32, True, False, 4),
+              ((1, 3, 4, 4), torch.float32, False, False, 1),
+              ((2, 33, 2, 3), torch.bfloat16, True, False, 1),
+              ((2, 12, 3, 3), torch.bfloat16, False, True, 1),
+              ((2, 12, 3, 3), torch.float32, False, True, 4),
+              ((2, 16, 3, 5), torch.bfloat16, False, True, 8)]
+
+
+def test_bn_act_plan_cache_follows_every_fact():
+    """Kernel B's plan cache on CPU tensors, as shapes, dtypes and the
+    residual and ReLU flags change in turn: each plan's variant, units
+    and width are the tensors' own, a repeated case hits the cache, and
+    replaying the kernel's walk with the plan gives the plain result bit
+    for bit (as does the wrapper, which runs the plain version here)."""
+    rng = np.random.default_rng(11)
+    seen = {}
+    for shape, dtype, residual, relu, unit in PLAN_CASES:
+        b, c, h, w = shape
+
+        def cl(a):
+            return torch.from_numpy(a).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+
+        x = cl(rng.standard_normal(shape).astype(np.float32))
+        r = cl(rng.standard_normal(shape).astype(np.float32)) \
+            if residual else None
+        coeffs = ba.bn_coefficients(
+            torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(c).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(c).astype(np.float32)),
+            torch.from_numpy(rng.uniform(0.5, 2, c).astype(np.float32)),
+            1e-5, dtype, fused_stats=dtype == torch.bfloat16)
+        pl = ba.launch_plan(x, coeffs, r, relu)
+        assert pl.unit == unit and pl.upr == c // unit
+        assert pl.units == x.numel() // unit
+        assert pl.variant == ((ba.BF16 if dtype == torch.bfloat16 else 0)
+                              | (ba.RES if residual else 0)
+                              | (ba.RELU if relu else 0)
+                              | (ba.VEC if unit > 1 else 0))
+        key = (shape, dtype, residual, relu)
+        if key in seen:
+            assert pl is seen[key]
+        seen[key] = pl
+        ref = ba.bn_act_reference(x, coeffs, r, relu)
+        for blocks in (1, 3, 7, pl.blocks):
+            assert torch.equal(_replay_walk(x, coeffs, r, relu, pl, blocks),
+                               ref)
+        assert torch.equal(ba.bn_act(x, coeffs, r, relu), ref)
+
+
+def test_bn_act_plan_takes_the_scalar_path_off_16_bytes():
+    """A channels-last view at a storage offset of one element: every
+    channel count a vector width holds, but the pointer is not on 16
+    bytes, so the plan is scalar; its walk still gives the plain
+    result."""
+    c = 16
+    base = torch.randn(2 * 3 * 3 * c + 1)
+    x = base[1:].view(2, 3, 3, c).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    coeffs = tuple(torch.randn(c) for _ in range(3))
+    pl = ba.launch_plan(x, coeffs)
+    assert pl.unit == 1 and not pl.variant & ba.VEC
+    assert torch.equal(_replay_walk(x, coeffs, None, False, pl, 2),
+                       ba.bn_act_reference(x, coeffs))
+    aligned = x.clone(memory_format=torch.channels_last)
+    assert ba.launch_plan(aligned, coeffs).unit == 4
 
 
 # -- fused_sgd: the leaf split of kernel D ------------------------------------
