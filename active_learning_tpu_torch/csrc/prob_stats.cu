@@ -1,26 +1,40 @@
 // Softmax statistics of a batch of logits: confidence, margin, entropy and
-// the predicted class, one row per block.
+// the predicted class.
 //
 // Replaces the JAX package's softmax-statistics pass,
 // active_learning_tpu/strategies/scoring.py::make_prob_stats_step
 // (scoring.py:109-126, ROADMAP kernel K3), which XLA fused after the head.
 // Per row, in float32 and in the JAX step's own arithmetic:
-//   m = max x;  s = sum exp(x - m);  p = exp(x - m) / s;
+//   m = max x;  s = sum exp(x - m);  p = exp(x - m) / s (a division);
 //   logp = (x - m) - log s;
 //   top-2 over p (not over x), ranked by value and then by the LOWER
-//   index, as jax.lax.top_k ranks ties;  confidence = p1, margin = p1 - p2,
-//   pred = index of p1;  entropy = -sum_{p > 0} p * logp (0 log 0 := 0).
+//   index, a NaN above every number, as jax.lax.top_k ranks them;
+//   confidence = p1, margin = p1 - p2, pred = index of p1;
+//   entropy = -sum_{p > 0} p * logp (0 log 0 := 0), each product rounded
+//   on its own.
+// A row holding a NaN or a +inf has p NaN everywhere, so pred is 0 and
+// confidence and margin are NaN, as in the reference: jnp.max makes m NaN
+// there, and here fmaxf skips the NaN but exp(NaN - m) makes s NaN, which
+// gives the same p.  A finite p lies in [0, 1], so the top-2 ranks a NaN
+// first by taking it as 2 (and writes it back as NaN): the merges keep
+// the plain compares of value and index.
 //
 // Bound: launch and latency.  At the served shape (B = 64 rows, C = 1000
 // classes) the kernel reads 256 KB and writes 1 KB, under 0.1 us of the
-// card's memory time; what costs is the launch and the three dependent
-// block reductions.  Design: one pass over device memory — the row is
-// read once into shared memory and the three passes (max, sum, stats)
-// run from there.  Every reduction has a fixed order (each thread walks
-// its strided elements in index order, then a fixed shuffle tree, then
-// the first warp over the per-warp partials), so a row's result never
-// depends on scheduling.  The top-2 merge uses a total order (value
-// descending, index ascending), so it is exact whatever the tree.
+// card's memory time; what costs is the launch, three dependent
+// reductions a row and each thread's chain of exps and divides.  Design:
+// a block a row, so that many warps share a row's exps and divides (32
+// threads for C <= 32, 128 to C = 512, 256 above); the row is read once
+// into shared memory, and each reduction is a warp shuffle tree, then one
+// slot a warp in shared memory folded by the first warp.  A warp a row
+// with the row in registers was tried and was slower on the device at
+// every measured shape (PERF.md, kernel A): one warp cannot hide its lanes'
+// 32 exps and IEEE divides.  The host's side of a call (one output
+// allocation, one ctypes call) is what paces a caller at the served
+// shape.  Every reduction has a fixed order (each thread walks its
+// elements in a fixed order, then a fixed tree), so a row's result never
+// depends on scheduling; the top-2 merge uses a total order, so it is
+// exact whatever the tree.
 //
 // C interface for ctypes; the wrapper is active_learning_tpu_torch/ops/
 // prob_stats.py.  The function returns cudaGetLastError() after the
@@ -33,6 +47,10 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxClasses = 12288;  // the row in shared memory: 48 KB
+// Rows past this many classes need the opt-in to more than 48 KB of
+// shared memory (the row and the static partials).
+constexpr int kOptInClasses = 12000;
 
 struct Top2 {
   float v1;
@@ -41,9 +59,16 @@ struct Top2 {
   int i2;
 };
 
-// value descending, index ascending: the order jax.lax.top_k ranks by.
+// The rank of a probability in the top-2: p itself, a NaN above every p.
+constexpr float kNanRank = 2.f;
+
+// Value descending, ties to the lower index.
 __device__ __forceinline__ bool ranks_before(float v, int i, float w, int j) {
   return v > w || (v == w && i < j);
+}
+
+__device__ __forceinline__ float unrank(float r) {
+  return r == kNanRank ? NAN : r;
 }
 
 __device__ __forceinline__ Top2 merge_top2(const Top2& a, const Top2& b) {
@@ -143,9 +168,8 @@ __device__ Top2 block_top2(Top2 t, Top2* scratch) {
 
 template <int BLOCK>
 __global__ void __launch_bounds__(BLOCK)
-prob_stats_kernel(const float* __restrict__ logits, int cols,
-                  float* __restrict__ confidence, float* __restrict__ margin,
-                  float* __restrict__ entropy, int* __restrict__ pred) {
+prob_stats_kernel(const float* __restrict__ logits, int rows, int cols,
+                 float* __restrict__ out) {
   extern __shared__ float row[];  // cols floats
   __shared__ float red[BLOCK / 32];
   __shared__ Top2 red_top[BLOCK / 32];
@@ -175,51 +199,72 @@ prob_stats_kernel(const float* __restrict__ logits, int cols,
     // __fmul_rn keeps the product rounded on its own, as the JAX step
     // (and the plain version) compute p * logp before the sum.
     if (p > 0.f) h += __fmul_rn(p, logp);
-    if (ranks_before(p, i, t.v1, t.i1)) {
+    const float r = p == p ? p : kNanRank;
+    if (ranks_before(r, i, t.v1, t.i1)) {
       t.v2 = t.v1;
       t.i2 = t.i1;
-      t.v1 = p;
+      t.v1 = r;
       t.i1 = i;
-    } else if (ranks_before(p, i, t.v2, t.i2)) {
-      t.v2 = p;
+    } else if (ranks_before(r, i, t.v2, t.i2)) {
+      t.v2 = r;
       t.i2 = i;
     }
   }
   h = block_sum<BLOCK>(h, red);
   t = block_top2<BLOCK>(t, red_top);
 
+  // out is [4, rows]: confidence, margin, entropy, pred (int32 bits).
   if (tid == 0) {
-    confidence[blockIdx.x] = t.v1;
-    margin[blockIdx.x] = t.v1 - t.v2;
-    entropy[blockIdx.x] = -h;
-    pred[blockIdx.x] = t.i1;
+    const float p1 = unrank(t.v1);
+    out[blockIdx.x] = p1;
+    out[rows + blockIdx.x] = p1 - unrank(t.v2);
+    out[2 * rows + blockIdx.x] = -h;
+    reinterpret_cast<int*>(out)[3 * rows + blockIdx.x] = t.i1;
   }
 }
 
 template <int BLOCK>
-void launch(const float* logits, int rows, int cols, float* confidence,
-            float* margin, float* entropy, int* pred, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(cols) * sizeof(float);
-  prob_stats_kernel<BLOCK><<<rows, BLOCK, smem, stream>>>(
-      logits, cols, confidence, margin, entropy, pred);
+void launch(const float* logits, int rows, int cols, float* out,
+            cudaStream_t s) {
+  prob_stats_kernel<BLOCK><<<rows, BLOCK, cols * sizeof(float), s>>>(
+      logits, rows, cols, out);
 }
 
 }  // namespace
 
-// Block size: one warp for C <= 32, else 128 or 256 threads so that each
-// thread holds a handful of the row's elements.  The wrapper keeps C
-// within the 48 KB of default dynamic shared memory (C <= 12288).
-extern "C" int prob_stats_f32(const float* logits, int rows, int cols,
-                              float* confidence, float* margin,
-                              float* entropy, int* pred, void* stream) {
+extern "C" {
+
+// logits [rows, cols] float32, row-major; out [4, rows] 32-bit
+// (confidence, margin, entropy, pred as int32).  Block size: one warp for
+// cols <= 32, else 128 or 256 threads, so that each thread holds a
+// handful of the row's elements.
+int prob_stats_f32(const float* logits, int rows, int cols, float* out,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || cols < 2 || cols > 12288) return cudaErrorInvalidValue;
+  if (rows <= 0 || cols < 2 || cols > kMaxClasses) return cudaErrorInvalidValue;
   if (cols <= 32) {
-    launch<32>(logits, rows, cols, confidence, margin, entropy, pred, s);
+    launch<32>(logits, rows, cols, out, s);
   } else if (cols <= 512) {
-    launch<128>(logits, rows, cols, confidence, margin, entropy, pred, s);
+    launch<128>(logits, rows, cols, out, s);
   } else {
-    launch<256>(logits, rows, cols, confidence, margin, entropy, pred, s);
+    if (cols > kOptInClasses) {
+      // The row and the static partials pass the 48 KB default at the
+      // longest rows; the allowance is set once a device.
+      constexpr int kDevices = 64;
+      static bool allowed[kDevices] = {};
+      int dev = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess && !(dev < kDevices && allowed[dev])) {
+        e = cudaFuncSetAttribute(prob_stats_kernel<256>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxClasses * (int)sizeof(float));
+        if (e == cudaSuccess && dev < kDevices) allowed[dev] = true;
+      }
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    launch<256>(logits, rows, cols, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // extern "C"

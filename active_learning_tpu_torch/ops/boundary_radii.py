@@ -2,10 +2,13 @@
 K5, radii half).
 
 Replaces the JAX package's ``strategies/scoring.py:196-206``
-``head_pair_norms`` and ``:209-267`` ``boundary_radii``.  The CUDA source
-is ``csrc/boundary_radii.cu`` (its header gives the arithmetic and the
-bound).  ``boundary_radii`` and ``head_pair_norms`` launch it on CUDA
-tensors and run their plain versions, below, only on CPU tensors.
+``head_pair_norms`` and ``:209-267`` ``boundary_radii``, with MASE's
+``min_margin`` (``:290``).  The CUDA source is ``csrc/boundary_radii.cu``
+(its header gives the arithmetic, the bound and the design).
+``boundary_radii`` and ``head_pair_norms`` launch it on CUDA tensors and
+run their plain versions, below, only on CPU tensors.  Rows with NaN or
+±inf follow the reference: the argmax returns the first NaN, and a NaN
+radius makes ``min_margin`` NaN.
 
 Layouts follow the JAX package: ``kernel`` is the flax Dense kernel
 ``[D, C]`` (torch's ``linear.weight`` transposed), ``bias`` ``[C]``, the
@@ -22,7 +25,8 @@ import torch
 from ..device import full_float32
 from . import _build
 
-# Launches since the process started (or since a caller reset them).
+# Kernel launches since the process started (or since a caller reset
+# them), as the C entries count them: two a radii call, one a table.
 radii_launches = 0
 pair_norms_launches = 0
 
@@ -119,8 +123,16 @@ def _check(*tensors: torch.Tensor) -> None:
         raise ValueError(f"boundary_radii: unsupported device {dev}")
 
 
+def _vec(*tensors: torch.Tensor) -> int:
+    """1 when the kernel may copy in 16-byte pieces: every row a multiple
+    of 4 floats long and every base address 16-byte aligned."""
+    return int(tensors[0].shape[-1] % 4 == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def head_pair_norms(kernel: torch.Tensor) -> torch.Tensor:
-    """[C, C] of ||w_c - w_j|| for the flax kernel ``[D, C]``."""
+    """[C, C] of ||w_c - w_j|| for the flax kernel ``[D, C]``; on the card
+    symmetric bit for bit."""
     global pair_norms_launches
     _check(kernel)
     if kernel.ndim != 2:
@@ -130,13 +142,15 @@ def head_pair_norms(kernel: torch.Tensor) -> torch.Tensor:
     w = _rows(kernel)
     c, d = w.shape
     out = torch.empty(c, c, dtype=torch.float32, device=w.device)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(w.device):
-        err = _lib().br_pair_norms(w.data_ptr(), c, d, out.data_ptr(),
-                                   torch.cuda.current_stream().cuda_stream)
+        err = _lib().br_pair_norms(
+            w.data_ptr(), c, d, _vec(w), out.data_ptr(),
+            ctypes.byref(launched), torch.cuda.current_stream().cuda_stream)
+    pair_norms_launches += launched.value
     if err != 0:
         raise RuntimeError(f"head_pair_norms kernel launch failed: CUDA "
                            f"error {err}")
-    pair_norms_launches += 1
     return out
 
 
@@ -148,7 +162,8 @@ def boundary_radii(embedding: torch.Tensor, kernel: torch.Tensor,
     boundary of the head (``radii`` [B, C], +inf at the predicted class),
     the predicted class (``pred`` int32) and the smallest radius
     (``min_margin``).  ``pair_norms``: ``head_pair_norms(kernel)``, passed
-    in when many batches meet one head."""
+    in when many batches meet one head.  On the card this is two kernel
+    launches; ``radii_launches`` grows by the count the C entry reports."""
     global radii_launches
     _check(embedding, kernel, bias)
     if embedding.ndim != 2 or kernel.ndim != 2 or bias.ndim != 1 or \
@@ -170,22 +185,37 @@ def boundary_radii(embedding: torch.Tensor, kernel: torch.Tensor,
     if norms.shape != (c, c):
         raise ValueError(f"pair_norms must be [{c}, {c}]")
     dev = e.device
-    logits = torch.empty(bsz, c, dtype=torch.float32, device=dev)
     out = {"radii": torch.empty(bsz, c, dtype=torch.float32, device=dev),
            "pred": torch.empty(bsz, dtype=torch.int32, device=dev),
            "min_margin": torch.empty(bsz, dtype=torch.float32, device=dev)}
+    if bsz == 0:
+        return out
+    lib = _lib()
+    nbytes = lib.br_scratch_bytes(bsz, c)
+    if nbytes < 0:
+        raise ValueError(f"boundary_radii: B={bsz}, C={c} is too large")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = _lib().br_radii(
+        err = lib.br_radii(
             e.data_ptr(), w.data_ptr(), b.data_ptr(), norms.data_ptr(), bsz,
-            c, d, logits.data_ptr(), out["pred"].data_ptr(),
+            c, d, _vec(e, w), scratch.data_ptr(), out["pred"].data_ptr(),
             out["radii"].data_ptr(), out["min_margin"].data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            ctypes.byref(launched), torch.cuda.current_stream().cuda_stream)
+    radii_launches += launched.value
     if err != 0:
         raise RuntimeError(f"boundary_radii kernel launch failed: CUDA "
                            f"error {err}")
-    radii_launches += 1
     return out
 
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# The C entry points' argument types (csrc/boundary_radii.cu).
+_ARGTYPES = {
+    "br_scratch_bytes": [_i, _i],
+    "br_radii": [_p, _p, _p, _p, _i, _i, _i, _i, _p, _p, _p, _p, _p, _p],
+    "br_pair_norms": [_p, _i, _i, _i, _p, _p, _p],
+}
 
 _lib_handle = None
 
@@ -195,10 +225,9 @@ def _lib():
     global _lib_handle
     if _lib_handle is None:
         lib = _build.load("boundary_radii")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.br_radii.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p]
-        lib.br_pair_norms.argtypes = [p, i, i, p, p]
-        lib.br_radii.restype = ctypes.c_int
-        lib.br_pair_norms.restype = ctypes.c_int
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib_handle = lib
     return _lib_handle

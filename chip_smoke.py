@@ -10,13 +10,15 @@ phase fails:
 
 1. Build: every CUDA source of the port with nvcc (all at once).
 2. Kernels against their plain PyTorch versions, on the card, at the main
-   path's shapes: kernel A (``ops/prob_stats``, CUDA) on B in {8, 64} x
-   C in {10, 1000} with forced exact top-2 ties, and kernel B
+   path's shapes: kernel A (``ops/prob_stats``, CUDA) on B in {1, 8, 64,
+   256} x C in {10, 1000, 4097} (32, 256 and 256 threads a row), rows with
+   forced exact top-2 ties and rows with NaN, +inf and -inf (pred equal,
+   NaN and inf where the plain version has them), and kernel B
    (``ops/bn_act``, CUDA) on every BatchNorm shape of the SSLResNet50
    forward at B=64, in bf16 and f32, with and without residual.  Each is
-   timed with CUDA events beside its plain version and its bound; kernel
-   B also by the profiler's kernel events over a forward's 53 calls, and
-   its host time a call.
+   timed with CUDA events beside its plain version and its bound, by the
+   profiler's kernel events (kernel A at B = 64 and 256, C = 1000; kernel
+   B over a forward's 53 calls) and its host time a call.
 3. The slice: full-width SSLResNet50 (224x224x3, 1000 classes, bf16) with
    weights drawn from a numpy seed, published with the port's
    ``publish_best`` into a temporary experiment directory, served by the
@@ -78,11 +80,18 @@ phase fails:
    pooled BADGE factors [13,000, 16] + [13,000, 32] (a partition of the
    ImageNet sweep) and on [131,072, 2048] (its whole pool, bucketed),
    with the Threefry bits bit-equal; kernel F (``ops/boundary_radii``,
-   CUDA) on [256, 2048] embeddings against a [1000, 2048] head; kernel
+   CUDA) on [256, 2048] embeddings against a [1000, 2048] head, and on
+   ragged shapes (7, 10, 33), (300, 1001, 2050), (1, 3, 5) and the full
+   width with embedding rows holding NaN, +inf and -inf (pred equal, NaN
+   and inf where the plain version has them), the pair-norm table equal
+   to its transpose bit for bit, 2 kernels a radii call and 1 a table by
+   the C entry's count and by the profiler; kernel
    G (``ops/badge``, CUDA) on [256, 1000] logits and [256, 2048]
    embeddings, pooled and not.  Each timed beside its plain version,
    its bound and, for E, the ``torch.matmul`` + ``torch.topk`` form
-   (for F, ``torch.addmm`` of the logits as a labelled reference).
+   (for F, ``torch.addmm`` of the logits as a labelled reference, its
+   device time by the profiler and its bound in FP32 issue slots beside
+   the FLOP bound).
 8. Each of MASE, BASE, PartitionedCoreset (2 partitions) and
    PartitionedBADGE (2 partitions, pooled) ``query``s full-width
    SSLResNet50 (1000 classes, bf16, seeded) over 2,048 synthetic
@@ -211,6 +220,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+H100_SMS, F32_LANES_PER_SM = 132, 128
 SEED = 0
 N_TIMED = 50
 
@@ -234,43 +244,91 @@ def cuda_ms(fn, reps: int = N_TIMED, warmup: int = 3) -> float:
 
 # -- phase 2: kernels against their plain versions --------------------------
 
+# Row kinds of the non-finite checks: the values placed at seeded columns
+# of a standard-normal row ("all -inf" fills the row).
+NONFINITE_KINDS = {"finite": (), "nan": (np.nan,), "+inf": (np.inf,),
+                   "-inf": (-np.inf,), "+inf -inf": (np.inf, -np.inf),
+                   "nan +inf": (np.nan, np.inf), "+inf +inf": (np.inf, np.inf),
+                   "all -inf": None}
+
+
+def nonfinite_rows(x: np.ndarray, kinds, seed: int) -> np.ndarray:
+    """``x`` with row r made of kind ``kinds[(r + 1) % len(kinds)]`` (so
+    one row is enough for a NaN)."""
+    rng = np.random.default_rng(seed)
+    x = x.copy()
+    for r in range(x.shape[0]):
+        vals = NONFINITE_KINDS[kinds[(r + 1) % len(kinds)]]
+        if vals is None:
+            x[r] = -np.inf
+        elif vals:
+            x[r, rng.choice(x.shape[1], size=len(vals), replace=False)] = vals
+    return x
+
+
+def same_special(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN, +inf and -inf at the same entries."""
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isposinf(got), torch.isposinf(want))
+            and torch.equal(torch.isneginf(got), torch.isneginf(want)))
+
+
+def _finite_err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| where want is finite, 0 elsewhere."""
+    fin = torch.isfinite(want)
+    return (got - want).abs().where(fin, torch.zeros_like(want))
+
+
 def check_prob_stats(dev, detail):
+    """Kernel A against its plain version at B in {1, 8, 64, 256} x C in
+    {10, 1000, 4097} (a 32- and a 256-thread block a row): rows with forced
+    exact top-2 ties, and rows with NaN, +inf and -inf.  pred equal, NaN
+    and ±inf where the plain version has them, and the finite values
+    within the stated tolerances."""
     from active_learning_tpu_torch.ops import prob_stats as ps
 
     rng = np.random.default_rng(SEED)
     worst = 0.0
-    for b in (8, 64):
-        for c in (10, 1000):
+    for b in (1, 8, 64, 256):
+        for c in (10, 1000, 4097):
             x = rng.standard_normal((b, c)).astype(np.float32) * 3.0
+            tied = x.copy()
             # Every other row: an exact tie for the top-2, between the
             # row's argmax and a LATER index, then an earlier one.
             for r in range(0, b, 2):
-                top = int(np.argmax(x[r]))
-                other = (top + 1 + r) % c
-                x[r, other] = x[r, top]
-            logits = torch.from_numpy(x).to(dev)
-            got = ps.prob_stats(logits)
-            ref = ps.prob_stats_reference(logits)
-            torch.cuda.synchronize()
-            if not torch.equal(got["pred"], ref["pred"]):
-                raise AssertionError(f"prob_stats pred differs at B={b} "
-                                     f"C={c}")
-            errs = {k: (got[k] - ref[k]).abs().max().item()
-                    for k in ("confidence", "margin", "entropy")}
-            # confidence/margin: atol 1e-6.  entropy is a sum of C float32
-            # terms taken in another order than torch's: atol 1e-6 plus
-            # 1e-6 of its value (2 ulp at ln 1000).
-            tol_h = 1e-6 + 1e-6 * ref["entropy"].abs()
-            if (errs["confidence"] > 1e-6 or errs["margin"] > 1e-6
-                    or bool(((got["entropy"] - ref["entropy"]).abs()
-                             > tol_h).any())):
-                raise AssertionError(f"prob_stats at B={b} C={c}: {errs}")
-            ties = got["margin"][0::2]
-            if bool((ties != 0).any()):
-                raise AssertionError("prob_stats: a tied top-2 gave a "
-                                     "non-zero margin")
-            worst = max(worst, *errs.values())
-            detail.append({"kernel": "prob_stats", "B": b, "C": c, **errs})
+                top = int(np.argmax(tied[r]))
+                tied[r, (top + 1 + r) % c] = tied[r, top]
+            for rows, arr in (("tied", tied),
+                              ("nonfinite", nonfinite_rows(
+                                  x, list(NONFINITE_KINDS), b + c))):
+                logits = torch.from_numpy(arr).to(dev)
+                got = ps.prob_stats(logits)
+                ref = ps.prob_stats_reference(logits)
+                torch.cuda.synchronize()
+                where = f"B={b} C={c} {rows}"
+                if not torch.equal(got["pred"], ref["pred"]):
+                    raise AssertionError(f"prob_stats pred differs at "
+                                         f"{where}")
+                for k in ("confidence", "margin", "entropy"):
+                    if not same_special(got[k], ref[k]):
+                        raise AssertionError(f"prob_stats {k}: NaN or inf "
+                                             f"differs at {where}")
+                errs = {k: _finite_err(got[k], ref[k]).max().item()
+                        for k in ("confidence", "margin", "entropy")}
+                # confidence/margin: atol 1e-6.  entropy is a sum of C
+                # float32 terms taken in another order than torch's: atol
+                # 1e-6 plus 1e-6 of its value (2 ulp at ln 1000).
+                tol_h = 1e-6 + 1e-6 * ref["entropy"].abs()
+                if (errs["confidence"] > 1e-6 or errs["margin"] > 1e-6
+                        or bool((_finite_err(got["entropy"], ref["entropy"])
+                                 > tol_h).any())):
+                    raise AssertionError(f"prob_stats at {where}: {errs}")
+                if rows == "tied" and bool((got["margin"][0::2] != 0).any()):
+                    raise AssertionError("prob_stats: a tied top-2 gave a "
+                                         "non-zero margin")
+                worst = max(worst, *errs.values())
+                detail.append({"kernel": "prob_stats", "B": b, "C": c,
+                               "rows": rows, **errs})
     return worst
 
 
@@ -360,20 +418,40 @@ def check_bn_act(dev, calls, detail, dtypes=(torch.bfloat16, torch.float32),
 
 
 def time_prob_stats(dev):
+    """Kernel A at C = 1000 and B = 64 (the serve cap) and 256 (phase 8's
+    scoring batch): CUDA events over back-to-back calls (the host's pace
+    where the host is slower), the device time (the profiler's kernel
+    events, whole sessions only), the host time a call, the plain version
+    and the bytes bound.  The top-level figures are B = 64's."""
     from active_learning_tpu_torch.ops import prob_stats as ps
 
-    b, c = 64, 1000
-    logits = torch.randn(b, c, device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(1))
-    ms = cuda_ms(lambda: ps.prob_stats(logits))
-    plain = cuda_ms(lambda: ps.prob_stats_reference(logits))
-    nbytes = b * c * 4 + b * (3 * 4 + 4)
-    # exp, divide, two subtracts, the p·logp product, two sums, compares.
-    flops = b * c * 10
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / F32_FLOPS_PER_S else "operations"}
+    by_batch = {}
+    for b in (64, 256):
+        c = 1000
+        logits = torch.randn(b, c, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1))
+        nbytes = b * c * 4 + b * 4 * 4
+        # exp twice, divide, subtracts, the p·logp product, sums, compares.
+        flops = b * c * 10
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        before = ps.launches
+        dev_ms = profiled_device_ms(lambda: ps.prob_stats(logits),
+                                    t_b * 1e3)[0]
+        if ps.launches == before:
+            raise AssertionError("kernel A was not launched while profiled")
+        by_batch[b] = {
+            "ms": cuda_ms(lambda: ps.prob_stats(logits)),
+            "device_ms": dev_ms,
+            "host_us": host_us(lambda: ps.prob_stats(logits)),
+            "plain_ms": cuda_ms(lambda: ps.prob_stats_reference(logits)),
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+        r = by_batch[b]
+        log(f"kernel A at B={b} C={c}: CUDA events {r['ms']:.4f} ms, device "
+            f"{dev_ms * 1e3:.2f} us (profiler), host {r['host_us']:.2f} us a "
+            f"call; plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms'] * 1e3:.4f} us")
+    return {**by_batch[64], "by_batch": by_batch}
 
 
 def time_bn_act(dev, calls, detail):
@@ -1847,9 +1925,13 @@ def check_kcenter(dev, detail):
 
 def _check_radii(emb, kernel, bias, where, detail, path):
     """Kernel F against its plain version on these inputs: pair norms
-    within 2 D eps of themselves, predictions equal or their logits within
-    br.logits_tolerance, radii within br.radii_tolerance, +inf at the same
-    entries.  Returns (max abs err, the kernel's pair norms)."""
+    within 2 D eps of themselves and the kernel's table equal to its
+    transpose bit for bit; on rows whose embedding holds a NaN or ±inf,
+    pred equal and NaN and ±inf in the radii and min_margin where the
+    plain version has them; on the others predictions equal or their
+    logits within br.logits_tolerance, radii within br.radii_tolerance,
+    +inf at the same entries.  Returns (max abs err, the kernel's pair
+    norms)."""
     from active_learning_tpu_torch.ops import boundary_radii as br
 
     emb, kernel, bias = (t.to(torch.float32) for t in (emb, kernel, bias))
@@ -1862,12 +1944,23 @@ def _check_radii(emb, kernel, bias, where, detail, path):
     n_err = (norms_k - norms_p).abs()
     if bool((n_err > 2 * d * 2.0 ** -23 * norms_p + 1e-30).any()):
         raise AssertionError(f"head_pair_norms: max err {n_err.max()}")
-    same = got["pred"] == ref["pred"]
-    if not bool(same.all()):
+    if not torch.equal(norms_k, norms_k.T):
+        raise AssertionError(f"head_pair_norms at {path} {where}: the table "
+                             "is not symmetric bit for bit")
+    bad = ~torch.isfinite(emb).all(dim=1)
+    if not (torch.equal(got["pred"][bad], ref["pred"][bad])
+            and same_special(got["radii"][bad], ref["radii"][bad])
+            and same_special(got["min_margin"][bad],
+                             ref["min_margin"][bad])):
+        raise AssertionError(f"boundary_radii at {path} {where}: a row with "
+                             "NaN or inf differs from the plain version")
+    same = (got["pred"] == ref["pred"]) & ~bad
+    differ = (got["pred"] != ref["pred"]) & ~bad
+    if bool(differ.any()):
         from active_learning_tpu_torch.device import full_float32
         with full_float32():
             logits = emb @ kernel + bias
-        rows = (~same).nonzero()[:, 0]
+        rows = differ.nonzero()[:, 0]
         gap = (logits[rows, got["pred"][rows].long()]
                - logits[rows, ref["pred"][rows].long()]).abs()
         log(f"boundary_radii: {len(rows)} predictions differ, logit gaps "
@@ -1878,53 +1971,143 @@ def _check_radii(emb, kernel, bias, where, detail, path):
     rk, rp = got["radii"][same], ref["radii"][same]
     fin = torch.isfinite(rp)
     tol = br.radii_tolerance(emb[same], rp.where(fin, torch.zeros_like(rp)))
-    r_err = (rk - rp).abs().where(fin, torch.zeros_like(rp))
+    r_err = _finite_err(rk, rp)
     if not torch.equal(torch.isinf(rk), torch.isinf(rp)) or \
             bool((r_err > tol).any()):
         raise AssertionError(f"boundary_radii: max err {r_err.max()}")
     mm_err = (got["min_margin"][same] - ref["min_margin"][same]).abs()
     if bool((mm_err > tol.max(dim=1).values).any()):
         raise AssertionError("boundary_radii min_margin differs")
-    err = max(r_err.max().item(), n_err.max().item())
+    err = max(r_err.max().item() if r_err.numel() else 0.0,
+              n_err.max().item())
     detail.append({"kernel": "boundary_radii", "path": path, "where": where,
-                   "max_abs_err": err, "preds_differ": int((~same).sum())})
+                   "max_abs_err": err, "preds_differ": int(differ.sum()),
+                   "nonfinite_rows": int(bad.sum())})
     return err, norms_k
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def _issue_bound(nbytes: float, lane_instr: float, clock_hz: float,
+                 flops: float) -> dict:
+    """The bound of float32 work on the CUDA cores counted in issue slots:
+    ``lane_instr`` lane instructions over 132 SMs x 128 lanes at the SM
+    clock (an FSUB cannot fuse into an FMA), or the bytes, the larger;
+    the FLOP bound (``flops`` over 67 TFLOP/s) beside it, labelled."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = lane_instr / (H100_SMS * F32_LANES_PER_SM * clock_hz)
+    return {"bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "flop_bound_ms": max(t_b, flops / F32_FLOPS_PER_S) * 1e3}
+
+
+# Shapes of the ragged and non-finite checks of phase 7: (B, C, D).
+RADII_EDGE_SHAPES = ((7, 10, 33), (300, 1001, 2050), (1, 3, 5),
+                     (256, 1000, 2048))
 
 
 def check_boundary_radii(dev, detail):
     """Kernel F at MASE's full-width shapes: [256, 2048] embeddings
-    against a [1000, 2048] head; the pair norms of that head."""
+    against a [1000, 2048] head (the head's rows contiguous, as the
+    model's ``linear.weight`` gives them); the pair norms of that head;
+    ragged shapes and embedding rows with NaN, +inf and -inf; the kernels
+    a call launches by the C entry's count and by the profiler."""
     from active_learning_tpu_torch.ops import boundary_radii as br
 
     b, c, d = 256, 1000, 2048
     g = torch.Generator(device=dev).manual_seed(3)
     emb = torch.randn(b, d, device=dev, generator=g)
-    kernel = torch.randn(d, c, device=dev, generator=g) * 0.05
+    kernel = (torch.randn(c, d, device=dev, generator=g) * 0.05).T
     bias = torch.randn(c, device=dev, generator=g) * 0.1
     err, norms_k = _check_radii(emb, kernel, bias, f"B={b} C={c} D={d}",
                                 detail, "query")
-    ms = cuda_ms(lambda: br.boundary_radii(emb, kernel, bias, norms_k))
+    for i, (eb, ec, ed) in enumerate(RADII_EDGE_SHAPES):
+        ge = torch.Generator(device=dev).manual_seed(10 + i)
+        e = torch.from_numpy(nonfinite_rows(
+            torch.randn(eb, ed, device=dev, generator=ge).cpu().numpy(),
+            ["finite", "nan", "+inf", "-inf", "+inf -inf"], i)).to(dev)
+        k = torch.randn(ed, ec, device=dev, generator=ge) * 0.05
+        err = max(err, _check_radii(
+            e, k, torch.randn(ec, device=dev, generator=ge) * 0.1,
+            f"B={eb} C={ec} D={ed}", detail, "phase7 nonfinite")[0])
+
+    def radii():
+        br.boundary_radii(emb, kernel, bias, norms_k)
+
+    def pair_norms():
+        br.head_pair_norms(kernel)
+
+    # The kernels a call by the C entry's count, held against the
+    # profiler's kernel events of the same calls (as phase 11 holds
+    # kernel H's), and the device time, both from a session that holds
+    # every call's events: this fails when every session lost some.
+    launched, reps = {}, 20
+    for name, fn, counter, want in (
+            ("radii", radii, "radii_launches", 2),
+            ("pair_norms", pair_norms, "pair_norms_launches", 1)):
+        calls = [0]
+
+        def counted_fn(fn=fn):
+            calls[0] += 1
+            fn()
+
+        before = getattr(br, counter)
+        dev_ms, profiled = _device_ms_a_call(counted_fn, reps, want)
+        c_entry = (getattr(br, counter) - before) / calls[0]
+        whole = [k for n, k in profiled if n == reps * want]
+        if (dev_ms is None or c_entry != want
+                or any(k > c_entry * reps for _, k in profiled)
+                or any(k != c_entry * reps for k in whole)):
+            raise AssertionError(f"kernel F {name}: {c_entry} kernels a call "
+                                 f"by the C entry; the profiler's sessions "
+                                 f"(events, kernel events) over {reps} calls: "
+                                 f"{profiled}")
+        launched[name] = {"c_entry": c_entry, "profiler": whole[0] / reps,
+                          "device_ms": dev_ms}
+    ms = cuda_ms(radii)
     plain = cuda_ms(lambda: br.boundary_radii_reference(emb, kernel, bias,
                                                         norms_k), reps=5)
     from active_learning_tpu_torch.device import full_float32
     with full_float32():
         lib = cuda_ms(lambda: torch.addmm(bias, emb, kernel))
-    norms_ms = cuda_ms(lambda: br.head_pair_norms(kernel), reps=10)
+    norms_ms = cuda_ms(pair_norms, reps=10)
     norms_plain = cuda_ms(lambda: br.head_pair_norms_reference(kernel),
                           reps=3)
-    times = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+    clock = sm_clock_hz()
+    times = {"ms": ms, "device_ms": launched["radii"]["device_ms"],
+             "plain_ms": plain, "library_ms": lib,
              "library_call": "torch.addmm(bias, e, W) (the logits only: "
                              "no call forms the weight difference first; "
                              "a labelled reference)",
-             **_bound(4.0 * (b * d + c * d + 2 * c + 2 * b * c + 2 * b),
-                      5.0 * b * c * d),
-             "pair_norms_ms": norms_ms, "pair_norms_plain_ms": norms_plain,
-             "pair_norms_bound": _bound(4.0 * (c * d + c * c),
-                                        3.0 * c * c * d)}
+             # Issue slots: B*C*D FFMA (logits), then an FSUB and an FFMA
+             # a term (radii); the FLOP bound counts 2 + 3 flops a term.
+             **_issue_bound(4.0 * (b * d + c * d + 2 * c + 2 * b * c + 2 * b),
+                            3.0 * b * c * d, clock, 5.0 * b * c * d),
+             "sm_clock_mhz": clock / 1e6,
+             "kernels_a_call": launched,
+             "pair_norms_ms": norms_ms,
+             "pair_norms_device_ms": launched["pair_norms"]["device_ms"],
+             "pair_norms_plain_ms": norms_plain,
+             # The upper triangle's C*C/2 pairs, an FSUB and an FFMA a
+             # feature; the FLOP bound is the whole table's 3 C*C*D.
+             "pair_norms_bound": _issue_bound(4.0 * (c * d + c * c),
+                                              1.0 * c * c * d, clock,
+                                              3.0 * c * c * d)}
     detail.append({"kernel": "boundary_radii", "timings": times})
-    log(f"kernel F checks passed (max err {err:.3g}): {ms:.3f} ms (plain "
-        f"{plain:.3f}, addmm {lib:.3f}, bound {times['bound_ms']:.4f} by "
-        f"{times['bound_by']}); pair norms {norms_ms:.3f} ms")
+    log(f"kernel F checks passed (max err {err:.3g}): {ms:.4f} ms, device "
+        f"{times['device_ms']} ms (plain {plain:.3f}, addmm {lib:.4f}, "
+        f"bound {times['bound_ms']:.4f} by {times['bound_by']}, FLOP bound "
+        f"{times['flop_bound_ms']:.4f}); pair norms {norms_ms:.4f} ms, "
+        f"device {times['pair_norms_device_ms']} (bound "
+        f"{times['pair_norms_bound']['bound_ms']:.4f}); kernels a call "
+        f"{launched}")
     return err, times
 
 

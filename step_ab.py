@@ -2,6 +2,7 @@
 turns A, B, B, A.
 
     python3 step_ab.py DIR_A DIR_B [--s2d]
+    python3 step_ab.py DIR_A DIR_B --kernels-af
 
 Each turn is a fresh process that imports the checkout's own
 ``chip_smoke.py`` and package (from ``DIR``) and runs its path (a),
@@ -23,6 +24,18 @@ of 20 calls from the profiler's kernel events, before the train step
 complete reading counts (20 times one call's kernel events; a session
 that lost some is taken again, at most three); a turn fails without
 one, or when the time is under its bytes bound (20 bytes a parameter).
+
+With ``--kernels-af`` a turn times kernels A and F alone, through the
+wrappers both checkouts share (``prob_stats``, ``boundary_radii``,
+``head_pair_norms``), at the main paths' shapes: A at B = 64 and 256
+and C = 10 and 1000, F's radii at B = 256, C = 1000, D = 2048 (the head's rows
+contiguous, as the model gives them) and its pair norms.  For each, by
+the checkout's own ``chip_smoke`` helpers: the CUDA-event mean over 50
+back-to-back calls (``cuda_ms``), the device time and the kernel events
+a call from a complete profiler session of 20 calls
+(``profiled_device_ms``, ``_complete_events``), and the median host time
+of 200 calls (``host_us``: ``perf_counter``, the device not waited
+for).
 """
 
 from __future__ import annotations
@@ -101,9 +114,40 @@ print("TURN " + json.dumps(res))
 """
 
 
-def turn(path: str, s2d: bool = False) -> dict:
-    proc = subprocess.run([sys.executable, "-c",
-                           _TURN.format(dir=path, s2d=s2d)],
+_KERNEL_TURN = """
+import json, sys
+sys.path.insert(0, {dir!r})
+import torch
+import chip_smoke as cs
+from active_learning_tpu_torch.ops import boundary_radii as br
+from active_learning_tpu_torch.ops import prob_stats as ps
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(3)
+emb = torch.randn(256, 2048, device=dev, generator=g)
+kernel = (torch.randn(1000, 2048, device=dev, generator=g) * 0.05).T
+bias = torch.randn(1000, device=dev, generator=g) * 0.1
+norms = br.head_pair_norms(kernel)
+logits = {{(b, c): torch.randn(b, c, device=dev, generator=g)
+          for b in (64, 256) for c in (10, 1000)}}
+fns = {{"radii": lambda: br.boundary_radii(emb, kernel, bias, norms),
+        "pair_norms": lambda: br.head_pair_norms(kernel)}}
+for (b, c), x in logits.items():
+    fns[f"prob_stats_b{{b}}_c{{c}}"] = lambda x=x: ps.prob_stats(x)
+res = {{}}
+for name, fn in fns.items():
+    dev_ms = cs.profiled_device_ms(fn, 0.0)[0]
+    events = cs._complete_events(fn, 20)[0]
+    res[name] = {{"ms": cs.cuda_ms(fn), "device_ms": dev_ms,
+                 "kernels_a_call": sum(n for n, _ in events.values()) / 20,
+                 "host_us": cs.host_us(fn, reps=200)}}
+print("TURN " + json.dumps(res))
+"""
+
+
+def turn(path: str, s2d: bool = False, kernels: bool = False) -> dict:
+    code = (_KERNEL_TURN.format(dir=path) if kernels
+            else _TURN.format(dir=path, s2d=s2d))
+    proc = subprocess.run([sys.executable, "-c", code],
                           cwd=path, capture_output=True, text=True,
                           timeout=600)
     if proc.returncode != 0:
@@ -114,18 +158,23 @@ def turn(path: str, s2d: bool = False) -> dict:
 
 
 def main(argv) -> int:
-    s2d = "--s2d" in argv
-    argv = [a for a in argv if a != "--s2d"]
+    s2d, kernels = "--s2d" in argv, "--kernels-af" in argv
+    argv = [a for a in argv if a not in ("--s2d", "--kernels-af")]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     dirs = {"A": os.path.abspath(argv[0]), "B": os.path.abspath(argv[1])}
     runs = {"A": [], "B": []}
     for label in "ABBA":
-        out = turn(dirs[label], s2d)
+        out = turn(dirs[label], s2d, kernels)
         runs[label].append(out)
         print(json.dumps({"turn": label, "dir": dirs[label], **out}),
               flush=True)
+    if kernels:
+        print(json.dumps({label: {"dir": dirs[label], **{
+            name: {k: [r[name][k] for r in rs] for k in rs[0][name]}
+            for name in rs[0]}} for label, rs in runs.items()}))
+        return 0
     print(json.dumps({label: {"dir": dirs[label],
                               "step_ms": [r["step_ms"] for r in rs],
                               **{k: [r[k] for r in rs] for k in rs[0]

@@ -82,6 +82,49 @@ def test_boundary_radii_match_jax(b, d, c):
                                rtol=1e-4)
 
 
+def _assert_same_nonfinite(got, want, what):
+    """NaN and ±inf at the same entries; finite entries within 1e-4."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want), what)
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want), what)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want), what)
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4, err_msg=what)
+
+
+@pytest.mark.parametrize("where", ["embedding", "head"])
+def test_boundary_radii_match_jax_on_nonfinite_inputs(where):
+    """Embedding rows with a NaN, a +inf, a -inf, and a +inf beside a
+    -inf (or a NaN in one head column): pred is the first NaN logit or
+    the first of the largest, as jnp.argmax; radii NaN and ±inf where the
+    JAX function has them; min_margin NaN where a radius is, as make_mase_step's
+    jnp.min."""
+    emb, kernel, bias = _head(11, 10, 24, 13)
+    if where == "embedding":
+        for r, vals in enumerate([(np.nan,), (np.inf,), (-np.inf,),
+                                  (np.inf, -np.inf), (np.nan, np.inf)]):
+            emb[r, [3, 17][:len(vals)]] = vals
+    else:
+        kernel[5, 7] = np.nan
+    want = jax_scoring.boundary_radii(jnp.asarray(emb), jnp.asarray(kernel),
+                                      jnp.asarray(bias))
+    wr = np.asarray(want["radii"])
+    got = br.boundary_radii(*_t(emb, kernel, bias))
+    np.testing.assert_array_equal(got["pred"].numpy(),
+                                  np.asarray(want["pred"]))
+    _assert_same_nonfinite(got["radii"].numpy(), wr, "radii")
+    _assert_same_nonfinite(got["min_margin"].numpy(), np.min(wr, axis=1),
+                           "min_margin")
+    _assert_same_nonfinite(
+        br.head_pair_norms(torch.from_numpy(kernel)).numpy(),
+        np.asarray(jax_scoring.head_pair_norms(jnp.asarray(kernel))),
+        "pair norms")
+    if where == "embedding":
+        assert got["pred"][0].item() == 0
+        assert torch.isnan(got["min_margin"][0])
+    else:
+        assert (got["pred"].numpy() == 7).all()
+
+
 @pytest.mark.parametrize("d,c", [(8, 5), (64, 10), (33, 200)])
 def test_head_pair_norms_match_jax(d, c):
     _, kernel, _ = _head(d + c, 1, d, c)

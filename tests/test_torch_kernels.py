@@ -36,11 +36,16 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("b,c", [(8, 10), (64, 1000), (3, 33), (5, 513)])
+@pytest.mark.parametrize("b,c", [(8, 10), (64, 1000), (3, 33), (5, 513),
+                                 (1, 2), (256, 1000),
+                                 (4, 2048), (3, 2049),
+                                 (2, 4097), (2, ps.MAX_CLASSES)])
 def test_prob_stats_kernel_matches_plain(cuda_device, b, c):
     """pred exact (ties included); confidence and margin within 1e-6;
     entropy within 1e-6 plus 1e-6 of its value (a sum of C float32
-    terms in another order)."""
+    terms in another order).  C = 2, 33, 513 and 12,288 take each block
+    size's edges (32, 128 and 256 threads a row, the last past the 48 KB
+    default of shared memory)."""
     g = torch.Generator(device=cuda_device).manual_seed(b * c)
     x = torch.randn(b, c, device=cuda_device, generator=g) * 3.0
     top = x.argmax(dim=1)
@@ -57,6 +62,60 @@ def test_prob_stats_kernel_matches_plain(cuda_device, b, c):
         torch.testing.assert_close(got[k], ref[k], rtol=0, atol=1e-6)
     torch.testing.assert_close(got["entropy"], ref["entropy"], rtol=1e-6,
                                atol=1e-6)
+
+
+# Row kinds of the non-finite checks: the values placed at seeded columns
+# of a standard-normal row ("all -inf" fills the row).
+NONFINITE_KINDS = {"finite": (), "nan": (float("nan"),),
+                   "+inf": (float("inf"),), "-inf": (float("-inf"),),
+                   "+inf -inf": (float("inf"), float("-inf")),
+                   "nan +inf": (float("nan"), float("inf")),
+                   "+inf +inf": (float("inf"), float("inf")),
+                   "all -inf": None}
+
+
+def _nonfinite_rows(x: torch.Tensor, kinds, seed: int) -> torch.Tensor:
+    """``x`` with row r made of kind ``kinds[(r + 1) % len(kinds)]`` (so
+    one row is enough for a NaN)."""
+    rng = np.random.default_rng(seed)
+    x = x.clone()
+    for r in range(x.shape[0]):
+        vals = NONFINITE_KINDS[kinds[(r + 1) % len(kinds)]]
+        if vals is None:
+            x[r] = float("-inf")
+        elif vals:
+            cols = rng.choice(x.shape[1], size=len(vals), replace=False)
+            x[r, torch.from_numpy(cols)] = torch.tensor(vals, device=x.device)
+    return x
+
+
+def _same_special(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isposinf(got), torch.isposinf(want))
+            and torch.equal(torch.isneginf(got), torch.isneginf(want)))
+
+
+@pytest.mark.parametrize("b,c", [(16, 10), (16, 1000), (8, 2048), (8, 4097),
+                                 (1, 3)])
+def test_prob_stats_kernel_on_nonfinite_rows(cuda_device, b, c):
+    """Rows with NaN, +inf and -inf as the plain version (and the JAX
+    step) has them: a NaN or a +inf makes every probability NaN, so pred
+    is 0 and confidence and margin NaN; -inf is a probability of 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    x = torch.randn(b, c, device=cuda_device, generator=g) * 3.0
+    x = _nonfinite_rows(x, list(NONFINITE_KINDS), seed=b + c)
+    got = ps.prob_stats(x)
+    ref = ps.prob_stats_reference(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got["pred"], ref["pred"])
+    assert bool(((got["pred"] >= 0) & (got["pred"] < c)).all())
+    for k in ("confidence", "margin", "entropy"):
+        assert _same_special(got[k], ref[k]), k
+    for k in ("confidence", "margin"):
+        torch.testing.assert_close(got[k], ref[k], rtol=0, atol=1e-6,
+                                   equal_nan=True)
+    torch.testing.assert_close(got["entropy"], ref["entropy"], rtol=1e-6,
+                               atol=1e-6, equal_nan=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -611,12 +670,18 @@ def test_kcenter_wrappers_raise_rather_than_fall_back(cuda_device):
 
 # -- kernel F: boundary radii, pair norms -------------------------------------
 
-@pytest.mark.parametrize("b,c,d", [(7, 10, 33), (256, 1000, 2048)])
+_RADII_SHAPES = [(7, 10, 33), (256, 1000, 2048), (300, 1001, 2050),
+                 (1, 3, 5)]
+
+
+@pytest.mark.parametrize("b,c,d", _RADII_SHAPES + [(512, 10, 512)])
 def test_boundary_radii_kernel_matches_plain(cuda_device, b, c, d):
     """Predictions equal (or, where they differ, the two logits within
     br.logits_tolerance); radii within br.radii_tolerance where the
     predictions agree, +inf at the same places; pair norms within
-    2 * D * eps of their value."""
+    2 * D * eps of their value.  The C entries report 2 kernels a radii
+    call and 1 a table.  (300, 1001, 2050) and (1, 3, 5) leave ragged
+    tiles and take 4-byte copies."""
     g = torch.Generator(device=cuda_device).manual_seed(b + c + d)
     emb = torch.randn(b, d, device=cuda_device, generator=g)
     kernel = torch.randn(d, c, device=cuda_device, generator=g) * 0.05
@@ -628,7 +693,7 @@ def test_boundary_radii_kernel_matches_plain(cuda_device, b, c, d):
     ref = br.boundary_radii_reference(emb, kernel, bias, norms_p)
     torch.cuda.synchronize()
     assert (br.radii_launches, br.pair_norms_launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 2, before[1] + 1)
     assert bool(((norms_k - norms_p).abs()
                  <= 2 * d * 2.0 ** -23 * norms_p + 1e-30).all())
     same = got["pred"] == ref["pred"]
@@ -646,6 +711,51 @@ def test_boundary_radii_kernel_matches_plain(cuda_device, b, c, d):
     mm_tol = tol.where(fin, torch.zeros_like(tol)).max(dim=1).values
     assert bool(((got["min_margin"][same] - ref["min_margin"][same]).abs()
                  <= mm_tol).all())
+
+
+@pytest.mark.parametrize("b,c,d", _RADII_SHAPES)
+def test_boundary_radii_kernel_on_nonfinite_rows(cuda_device, b, c, d):
+    """Embedding rows with a NaN, a +inf, a -inf, or a +inf beside a
+    -inf: pred equal to the plain version's (the first NaN logit, or the
+    first +inf), radii and min_margin NaN and ±inf where the plain
+    version has them; the finite rows as in the test above."""
+    g = torch.Generator(device=cuda_device).manual_seed(b + c + d + 1)
+    emb = torch.randn(b, d, device=cuda_device, generator=g)
+    kernel = torch.randn(d, c, device=cuda_device, generator=g) * 0.05
+    bias = torch.randn(c, device=cuda_device, generator=g) * 0.1
+    kinds = ["finite", "nan", "+inf", "-inf", "+inf -inf"]
+    emb = _nonfinite_rows(emb, kinds, seed=b * d)
+    norms = br.head_pair_norms_reference(kernel)
+    got = br.boundary_radii(emb, kernel, bias, norms)
+    ref = br.boundary_radii_reference(emb, kernel, bias, norms)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(emb).all(dim=1)
+    assert bool(bad[0])
+    assert torch.equal(got["pred"][bad], ref["pred"][bad])
+    assert _same_special(got["radii"][bad], ref["radii"][bad])
+    assert _same_special(got["min_margin"][bad], ref["min_margin"][bad])
+    assert bool(torch.isnan(got["min_margin"][0]))
+    ok = ~bad & (got["pred"] == ref["pred"])
+    rp = ref["radii"][ok]
+    rfin = torch.isfinite(rp)
+    tol = br.radii_tolerance(emb[ok], rp.where(rfin, torch.zeros_like(rp)))
+    assert _same_special(got["radii"][ok], rp)
+    assert bool(((got["radii"][ok] - rp).abs()[rfin] <= tol[rfin]).all())
+
+
+@pytest.mark.parametrize("c,d", [(3, 5), (10, 33), (1000, 2048),
+                                 (1001, 2050)])
+def test_head_pair_norms_kernel_is_symmetric_bit_for_bit(cuda_device, c, d):
+    """The table equals its transpose bit for bit, with 0 on the diagonal:
+    ||w_c - w_j|| and ||w_j - w_c|| sum the same squares in one order."""
+    g = torch.Generator(device=cuda_device).manual_seed(c + d)
+    kernel = torch.randn(d, c, device=cuda_device, generator=g) * 0.05
+    norms = br.head_pair_norms(kernel)
+    torch.cuda.synchronize()
+    assert torch.equal(norms, norms.T)
+    assert bool((norms.diagonal() == 0).all())
+    ref = br.head_pair_norms_reference(kernel)
+    assert bool(((norms - ref).abs() <= 2 * d * 2.0 ** -23 * ref).all())
 
 
 # -- kernel G: BADGE factors --------------------------------------------------

@@ -100,6 +100,49 @@ def test_prob_stats_ties_go_to_the_lower_index():
     assert _jax_prob_stats(x)["pred"].tolist() == [1]
 
 
+# Row kinds of the non-finite checks: each lists the values placed at
+# seeded columns of a standard-normal row ("all -inf" fills the row).
+NONFINITE_KINDS = {"finite": (), "nan": (np.nan,), "+inf": (np.inf,),
+                   "-inf": (-np.inf,), "+inf -inf": (np.inf, -np.inf),
+                   "nan +inf": (np.nan, np.inf), "+inf +inf": (np.inf, np.inf),
+                   "all -inf": None}
+
+
+def _nonfinite_logits(c: int, seed: int) -> np.ndarray:
+    """Two rows of each kind of ``NONFINITE_KINDS``."""
+    rng = np.random.default_rng(seed)
+    kinds = list(NONFINITE_KINDS.values()) * 2
+    x = rng.standard_normal((len(kinds), c)).astype(np.float32) * 2.0
+    for r, vals in enumerate(kinds):
+        if vals is None:
+            x[r] = -np.inf
+        elif vals:
+            x[r, rng.choice(c, size=len(vals), replace=False)] = vals
+    return x
+
+
+@pytest.mark.parametrize("c", [10, 1000, 4097])
+def test_prob_stats_reference_matches_jax_on_nonfinite_rows(c):
+    """Rows with NaN, +inf and -inf: a NaN or a +inf makes every
+    probability NaN (pred 0, confidence and margin NaN, as top_k ranks
+    NaN first); a -inf is a probability of exactly 0."""
+    x = _nonfinite_logits(c, seed=c + 1)
+    ref = _jax_prob_stats(x)
+    got = {k: v.numpy() for k, v in
+           ps.prob_stats(torch.from_numpy(x)).items()}
+    np.testing.assert_array_equal(got["pred"], ref["pred"])
+    for k in ("confidence", "margin", "entropy"):
+        np.testing.assert_array_equal(np.isnan(got[k]), np.isnan(ref[k]), k)
+    for k in ("confidence", "margin"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["entropy"], ref["entropy"], rtol=1e-6,
+                               atol=1e-6)
+    poisoned = [r for r, v in enumerate(list(NONFINITE_KINDS.values()) * 2)
+                if v is None or np.nan in v or np.inf in v]
+    assert (got["pred"][poisoned] == 0).all()
+    assert np.isnan(got["confidence"][poisoned]).all()
+
+
 def test_prob_stats_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         ps.prob_stats(torch.zeros(2, 10, dtype=torch.float64))
@@ -497,7 +540,10 @@ def _c_param_counts(name: str) -> dict:
 
 
 @pytest.mark.parametrize("module,source", [("stem_conv", "stem_dw"),
-                                           ("int8_sync", "int8_sync")])
+                                           ("int8_sync", "int8_sync"),
+                                           ("prob_stats", "prob_stats"),
+                                           ("boundary_radii",
+                                            "boundary_radii")])
 def test_ctypes_bindings_match_the_c_signatures(module, source):
     """Each bound entry point declares as many ctypes arguments as its C
     function takes (a short list would pass a pointer as garbage)."""
