@@ -51,8 +51,21 @@
 // version's separate ops.  kc_min_fold chains each (row, center) dot in
 // ascending feature order.  Nothing depends on the grid, the SM count or
 // the scheduling: two launches give equal bits.  Ranking is by value,
-// then by the LOWER row index (jax.lax.top_k's and argmax's order); every
-// reduction is a max/min under that total order, exact in any tree.
+// then by the LOWER row index (jax.lax.top_k's and argmax's order), a NaN
+// above every number (jnp.argmax's first NaN; -0 and +0 rank equal, as
+// argmax has them); every reduction is a max/min under that total order,
+// exact in any tree.  A candidate carries its value as an integer key
+// that orders that way, made once where the candidate is made, so every
+// compare in the trees is the plain (key, row) compare.
+//
+// Non-finite rows follow the reference.  Every min that folds a distance
+// (the lanes' mins over the centers, the row update, the re-check's
+// running minimum, min_fold's epilogue) and the re-check's max propagate
+// NaN, as jnp.minimum / jnp.min / jnp.max do: PTX min.NaN / max.NaN, one
+// instruction each at the rate of min.f32.  The draw's weight is
+// max.NaN(min_dist, 0) * selectable, and a NaN weight anywhere sends the
+// draw to its uniform candidate, as the reference's sum of the weights
+// does (see kDraw).
 //
 // The D^2 draw generates its own random bits: Threefry-2x32 (20 rounds)
 // of the 64-bit row counter under the step's key, the two output words
@@ -110,24 +123,59 @@ constexpr unsigned kFull = 0xffffffffu;
 // ---- ranking ---------------------------------------------------------------
 
 struct Cand {
-  float v;
-  int i;
+  int k;    // rank_key of the value
+  int i;    // the row
   float p;  // the draw's weight at the row (kc_fold_draw only)
 };
 
-__device__ __forceinline__ bool ranks_before(float v, int i, float w, int j) {
-  return v > w || (v == w && i < j);
+// An integer that orders values as the ranking does: a NaN above +inf,
+// -0 equal to +0, otherwise float order.
+__device__ __forceinline__ int rank_key(float v) {
+  if (v != v) return INT_MAX;
+  const int b = __float_as_int(__fadd_rn(v, 0.f));  // -0 + 0 = +0
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+// The value of a key (a NaN for a NaN's; +0 for -0's).
+__device__ __forceinline__ float key_value(int k) {
+  return k == INT_MAX ? NAN : __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+__device__ __forceinline__ Cand cand(float v, int i, float p) {
+  return Cand{rank_key(v), i, p};
+}
+
+// Key k at row i before key l at row j: the larger key, then the lower row.
+__device__ __forceinline__ bool ranks_before(int k, int i, int l, int j) {
+  return k > l || (k == l && i < j);
+}
+
+// jnp.minimum and jnp.maximum: NaN when either operand is NaN (fminf and
+// fmaxf return the other operand).
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ Cand better(const Cand& a, const Cand& b) {
-  return ranks_before(b.v, b.i, a.v, a.i) ? b : a;
+  return ranks_before(b.k, b.i, a.k, a.i) ? b : a;
 }
 
-__device__ __forceinline__ Cand none() { return Cand{-INFINITY, INT_MAX, 0.f}; }
+// No candidate: -inf at no row, after every real candidate (a -inf one
+// ranks before it by its row).
+constexpr int kNegInfKey = -2139095041;  // rank_key(-inf): 0x807fffff
+__device__ __forceinline__ Cand none() { return Cand{kNegInfKey, INT_MAX, 0.f}; }
 
 __device__ __forceinline__ Cand shfl_cand(const Cand& c, int o) {
   Cand r;
-  r.v = __shfl_xor_sync(kFull, c.v, o);
+  r.k = __shfl_xor_sync(kFull, c.k, o);
   r.i = __shfl_xor_sync(kFull, c.i, o);
   r.p = __shfl_xor_sync(kFull, c.p, o);
   return r;
@@ -143,7 +191,7 @@ __device__ __forceinline__ Cand warp_best(Cand c) {
 __device__ __forceinline__ void insert(Cand (&list)[MAXQ], Cand c, int q) {
 #pragma unroll
   for (int s = 0; s < MAXQ; ++s) {
-    if (s < q && ranks_before(c.v, c.i, list[s].v, list[s].i)) {
+    if (s < q && ranks_before(c.k, c.i, list[s].k, list[s].i)) {
       const Cand t = list[s];
       list[s] = c;
       c = t;
@@ -429,7 +477,7 @@ __global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs a) {
       }
 #pragma unroll
       for (int o = MAXQ / 2; o > 0; o >>= 1)
-        dist = fminf(dist, __shfl_xor_sync(kFull, dist, o));
+        dist = nan_min(dist, __shfl_xor_sync(kFull, dist, o));
       const unsigned ball = __ballot_sync(kFull, is_center);
       is_center = (ball >> (lane & ~(MAXQ - 1))) & 0xffu;
     }
@@ -437,7 +485,7 @@ __global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs a) {
     float md = a.min_dist[row];
     float s = a.sel[row];
     if (nc > 0) {
-      md = fminf(md, dist);
+      md = nan_min(md, dist);
       a.min_dist[row] = md;
       if (is_center && s != 0.f) {
         s = 0.f;
@@ -445,31 +493,34 @@ __global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldArgs a) {
       }
     }
     if (a.mode == kDraw) {
-      // Two Gumbel-max candidates: over log(p) (used when any p > 0) and
-      // over log(selectable) (the uniform fallback when every p is 0).
-      const float p = __fmul_rn(fmaxf(md, 0.f), s);
+      // Two Gumbel-max candidates: over log(p), used when the p sum
+      // above 0 (no p is NaN and one is above 0), and over
+      // log(selectable), the uniform fallback otherwise.  A NaN p ranks
+      // first, so the block's log(p) candidate is NaN exactly when one of
+      // its rows has a NaN p (a non-selectable row's too: NaN * 0).
+      const float p = __fmul_rn(nan_max(md, 0.f), s);
       const float g = tf_gumbel(tf_bits(a.k0, a.k1, (uint64_t)row));
-      da = better(da, Cand{__fadd_rn(g, logf(p)), row, p});
-      db = better(db, Cand{__fadd_rn(g, logf(s)), row, p});
+      da = better(da, cand(__fadd_rn(g, logf(p)), row, p));
+      db = better(db, cand(__fadd_rn(g, logf(s)), row, p));
     } else {
-      insert(list, Cand{s > 0.f ? md : -INFINITY, row, 0.f}, a.q);
+      insert(list, cand(s > 0.f ? md : -INFINITY, row, 0.f), a.q);
     }
   }
   if (a.mode == kDraw) {
     da = block_best(da, sh);
     db = block_best(db, sh);
     if (tid == 0) {
-      a.cand_v[blockIdx.x * 2] = da.v;
+      a.cand_v[blockIdx.x * 2] = key_value(da.k);
       a.cand_i[blockIdx.x * 2] = da.i;
       a.cand_p[blockIdx.x * 2] = da.p;
-      a.cand_v[blockIdx.x * 2 + 1] = db.v;
+      a.cand_v[blockIdx.x * 2 + 1] = key_value(db.k);
       a.cand_i[blockIdx.x * 2 + 1] = db.i;
       a.cand_p[blockIdx.x * 2 + 1] = db.p;
     }
   } else {
     block_top(list, a.q, wl, top);
     if (tid < a.q) {
-      a.cand_v[blockIdx.x * a.q + tid] = top[tid].v;
+      a.cand_v[blockIdx.x * a.q + tid] = key_value(top[tid].k);
       a.cand_i[blockIdx.x * a.q + tid] = top[tid].i;
     }
   }
@@ -495,12 +546,14 @@ struct MergeArgs {
 };
 
 // kSelect: the top q of the blocks' candidates, best first, into out_v,
-// out_i.  kDraw: the winner of the log(p) candidates if it is finite,
-// else of the log(selectable) ones; out_i[0] = its row, out_v[0] = its
-// weight p.  kBatch: the top q, their [q, q] distances, the re-check
-// (strategies/kcenter.py's _recheck_candidates, step for step), and the
-// sequence, its distances and the new count written to device memory;
-// out_v / out_i get the top q as in kSelect.
+// out_i.  kDraw: the winner of the log(p) candidates if it is above
+// -inf (some p > 0) and not NaN (no p is NaN), else of the
+// log(selectable) ones: the reference's `where(sum(p) > 0, p,
+// selectable)`; out_i[0] = its row, out_v[0] = its weight p (NaN where
+// the reference's p[idx] is).  kBatch: the top q, their [q, q]
+// distances, the re-check (strategies/kcenter.py's _recheck_candidates,
+// step for step), and the sequence, its distances and the new count
+// written to device memory; out_v / out_i get the top q as in kSelect.
 __global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(MergeArgs a) {
   __shared__ Cand wl[32][MAXQ];
   __shared__ Cand top[MAXQ];
@@ -510,14 +563,14 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(MergeArgs a) {
   if (a.mode == kDraw) {
     Cand x = none(), y = none();
     for (int e = tid; e < a.blocks; e += blockDim.x) {
-      x = better(x, Cand{a.cand_v[2 * e], a.cand_i[2 * e], a.cand_p[2 * e]});
-      y = better(y, Cand{a.cand_v[2 * e + 1], a.cand_i[2 * e + 1],
-                         a.cand_p[2 * e + 1]});
+      x = better(x, cand(a.cand_v[2 * e], a.cand_i[2 * e], a.cand_p[2 * e]));
+      y = better(y, cand(a.cand_v[2 * e + 1], a.cand_i[2 * e + 1],
+                         a.cand_p[2 * e + 1]));
     }
     x = block_best(x, sh);
     y = block_best(y, sh);
     if (tid == 0) {
-      const Cand w = x.v > -INFINITY ? x : y;
+      const Cand w = key_value(x.k) > -INFINITY ? x : y;
       a.out_v[0] = w.p;
       a.out_i[0] = w.i;
     }
@@ -533,10 +586,10 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(MergeArgs a) {
 #pragma unroll
   for (int s = 0; s < MAXQ; ++s) list[s] = none();
   for (int e = tid; e < a.blocks * q; e += blockDim.x)
-    insert(list, Cand{a.cand_v[e], a.cand_i[e], 0.f}, q);
+    insert(list, cand(a.cand_v[e], a.cand_i[e], 0.f), q);
   block_top(list, q, wl, top);
   if (tid < q) {
-    a.out_v[tid] = top[tid].v;
+    a.out_v[tid] = key_value(top[tid].k);
     a.out_i[tid] = top[tid].i;
   }
   if (a.mode != kBatch) return;
@@ -559,18 +612,18 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(MergeArgs a) {
   if (tid != 0) return;
 
   // The exact in-batch re-check.
-  const float thresh = top[q - 1].v;
+  const float thresh = key_value(top[q - 1].k);
   float cur[MAXQ], dv[MAXQ];
   bool accepted[MAXQ];
   int order[MAXQ];
 #pragma unroll
   for (int i = 0; i < MAXQ; ++i) {
-    cur[i] = i < q ? top[i].v : -INFINITY;
+    cur[i] = i < q ? key_value(top[i].k) : -INFINITY;
     accepted[i] = i == 0;
     order[i] = 0;
     dv[i] = 0.f;
   }
-  dv[0] = top[0].v;
+  dv[0] = key_value(top[0].k);
   const int limit = min(q, a.budget - count);
   int n_acc = 1, last = 0;
   bool stop = false;
@@ -579,8 +632,8 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_kernel(MergeArgs a) {
 #pragma unroll
     for (int i = 0; i < MAXQ; ++i) {
       if (i < q) {
-        cur[i] = fminf(cur[i], dcc[i][last]);
-        m = fmaxf(m, accepted[i] ? -INFINITY : cur[i]);
+        cur[i] = nan_min(cur[i], dcc[i][last]);
+        m = nan_max(m, accepted[i] ? -INFINITY : cur[i]);
       }
     }
     // Lowest pool index among the maxima (the sentinel n elsewhere).
@@ -799,8 +852,8 @@ __global__ void __launch_bounds__(MIN_THREADS, 1) min_fold_kernel(MinArgs a) {
       if (c < cvalid) {
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          run[i] = fminf(run[i], sq_dist(rsq[tr + 16 * i], csq[c],
-                                         prod[i][j]));
+          run[i] = nan_min(run[i], sq_dist(rsq[tr + 16 * i], csq[c],
+                                           prod[i][j]));
       }
     }
     __syncthreads();  // crow and csq are rewritten by the next tile
@@ -810,7 +863,7 @@ __global__ void __launch_bounds__(MIN_THREADS, 1) min_fold_kernel(MinArgs a) {
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
     for (int o = 4; o > 0; o >>= 1)
-      run[i] = fminf(run[i], __shfl_xor_sync(kFull, run[i], o));
+      run[i] = nan_min(run[i], __shfl_xor_sync(kFull, run[i], o));
   }
   if ((lane & 7) == 0 && (warp & 1))
 #pragma unroll
@@ -821,8 +874,8 @@ __global__ void __launch_bounds__(MIN_THREADS, 1) min_fold_kernel(MinArgs a) {
     for (int i = 0; i < 8; ++i) {
       const int row = row0 + tr + 16 * i;
       if (row < a.n) {
-        const float m = fminf(run[i], red[warp >> 1][lane >> 3][i]);
-        a.min_dist[row] = fminf(a.min_dist[row], m);
+        const float m = nan_min(run[i], red[warp >> 1][lane >> 3][i]);
+        a.min_dist[row] = nan_min(a.min_dist[row], m);
       }
     }
   }

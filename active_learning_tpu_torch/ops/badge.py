@@ -27,8 +27,8 @@ from . import _build
 # Launches since the process started (or since a caller reset it).
 launches = 0
 
-# The logits row lives in shared memory: 48 KB less the kernel's 256
-# static bytes, in float32 (csrc/badge.cu).
+# The logits row lives in shared memory: 48 KB less 256 bytes kept for
+# the kernel's static slots, in float32 (csrc/badge.cu).
 MAX_CLASSES = (48 * 1024 - 256) // 4
 
 
@@ -76,7 +76,9 @@ def badge_factors(logits: torch.Tensor, embedding: torch.Tensor,
                   pool_512: bool = False) -> Dict[str, torch.Tensor]:
     """BADGE factors of float32 logits ``[B, C]`` and embeddings
     ``[B, D]``: the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors.  On the card a call allocates once: unpooled, ``grad_a``
+    (``grad_e`` is the embedding itself); pooled, both factors as
+    contiguous halves of one buffer."""
     global launches
     if logits.ndim != 2 or embedding.ndim != 2 or \
             logits.shape[0] != embedding.shape[0]:
@@ -88,29 +90,49 @@ def badge_factors(logits: torch.Tensor, embedding: torch.Tensor,
         raise ValueError(f"badge_factors needs 1 <= C <= {MAX_CLASSES}")
     if logits.device != embedding.device:
         raise ValueError("logits and embedding on one device")
-    if logits.device.type == "cpu":
+    if not logits.is_cuda:
+        if logits.device.type != "cpu":
+            raise ValueError(f"badge_factors: unsupported device "
+                             f"{logits.device}")
         return badge_factors_reference(logits, embedding, pool_512)
-    if logits.device.type != "cuda":
-        raise ValueError(f"badge_factors: unsupported device {logits.device}")
-    z = logits.contiguous()
-    b, c = z.shape
+    logits = logits.contiguous()
+    b, c = logits.shape
     d = embedding.shape[1]
-    dev = z.device
+    fn = _kernel()
+    flags = _VEC_ROWS if c % 4 == 0 and logits.data_ptr() % 16 == 0 else 0
     if pool_512:
+        if embedding.dtype != torch.float32 or \
+                not embedding.is_contiguous():
+            embedding = embedding.to(torch.float32).contiguous()
+        # A block holds a logits row (rounded up to 4) or an embedding
+        # row in shared memory, whichever is longer (csrc/badge.cu).
+        need = 4 * max(-(-c // 4) * 4, d)
+        if need > _smem_limit:
+            raise ValueError(f"badge_factors: C={c} and D={d} need {need} "
+                             f"bytes of shared memory, over the kernel's "
+                             f"{_smem_limit}")
+        if d % 4 == 0 and embedding.data_ptr() % 16 == 0:
+            flags |= _VEC_EMB
         h, w = pool_shape(c)
-        e = embedding.to(torch.float32).contiguous()
-        out = {"grad_a": torch.empty(b, h, dtype=torch.float32, device=dev),
-               "grad_e": torch.empty(b, w, dtype=torch.float32, device=dev)}
-        e_ptr, e_out = e.data_ptr(), out["grad_e"].data_ptr()
+        buf = torch.empty(b * (h + w), dtype=torch.float32,
+                          device=logits.device)
+        out = {"grad_a": buf.as_strided((b, h), (h, 1)),
+               "grad_e": buf.as_strided((b, w), (w, 1), b * h)}
+        args = (logits.data_ptr(), embedding.data_ptr(), b, c, d, h, w,
+                flags, buf.data_ptr(), buf.data_ptr() + 4 * b * h)
     else:
-        h = w = 0
-        out = {"grad_a": torch.empty(b, c, dtype=torch.float32, device=dev),
-               "grad_e": embedding.to(torch.float32)}
-        e_ptr = e_out = None
-    with torch.cuda.device(dev):
-        err = _kernel()(z.data_ptr(), e_ptr, b, c, d, h, w,
-                        out["grad_a"].data_ptr(), e_out,
-                        torch.cuda.current_stream().cuda_stream)
+        a = torch.empty(b, c, dtype=torch.float32, device=logits.device)
+        out = {"grad_a": a, "grad_e": embedding.to(torch.float32)}
+        args = (logits.data_ptr(), None, b, c, d, 0, 0, flags, a.data_ptr(),
+                None)
+    if b == 0:
+        return out
+    dev = logits.get_device()
+    if dev == torch.cuda.current_device():
+        err = fn(*args, _stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, _stream(dev))
     if err != 0:
         raise RuntimeError(f"badge_factors kernel launch failed: CUDA error "
                            f"{err}")
@@ -118,16 +140,30 @@ def badge_factors(logits: torch.Tensor, embedding: torch.Tensor,
     return out
 
 
+# Launch flags (csrc/badge.cu): 16-byte rows of logits (and of a), of the
+# embedding.
+_VEC_ROWS, _VEC_EMB = 1, 2
+
 _fn = None
+_stream = None
+_smem_limit = None
 
 
 def _kernel():
-    """The C entry point, built and bound at first use."""
-    global _fn
+    """The C entry point, built and bound at first use, with the current
+    stream's reader and the kernel's shared-memory limit in bytes."""
+    global _fn, _stream, _smem_limit
     if _fn is None:
-        fn = _build.load("badge").badge_factors_f32
+        lib = _build.load("badge")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, p, p, p]
+        fn = lib.badge_factors_f32
+        fn.argtypes = [p, p, i, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
+        lib.badge_smem_limit.argtypes = []
+        lib.badge_smem_limit.restype = ctypes.c_int
+        _smem_limit = lib.badge_smem_limit()
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        _stream = raw if raw is not None else (
+            lambda d: torch.cuda.current_stream(d).cuda_stream)
         _fn = fn
     return _fn

@@ -26,6 +26,14 @@ plain version on CPU tensors and the kernel on CUDA tensors; it updates
 ``min_dist`` and ``selectable`` in place either way.  Centers are int64
 row indices on the pool's device, so a scan step's pick can be the next
 step's center without the host.
+
+Rows holding NaN or ±inf follow the reference on the kernel and in the
+plain versions alike: the fold's min propagates NaN (``jnp.minimum`` of
+``jnp.min``), the top-q ranks a NaN first, ties to the lower index
+(``jnp.argmax``'s order, so the batched scan stays the q = 1 scan pick for
+pick), and a NaN weight anywhere, a non-selectable row's included, makes
+the D² draw uniform over the selectable rows (the reference's sum of the
+weights is NaN, and ``NaN > 0`` is false).
 """
 
 from __future__ import annotations
@@ -117,7 +125,7 @@ def fold_draw_reference(factors: Factors, sqn: torch.Tensor,
     log(weights))`` over the padded pool, with p = clip(min_dist, 0) *
     selectable and the weights p where it sums above 0, else selectable
     (the reference's uniform fallback when every unlabeled distance is
-    0)."""
+    0, or when a p is NaN)."""
     fold_reference(factors, sqn, min_dist, centers, selectable)
     p = torch.clamp(min_dist, min=0.0) * selectable
     w = torch.where(p.sum() > 0, p, selectable)

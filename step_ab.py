@@ -3,6 +3,7 @@ turns A, B, B, A.
 
     python3 step_ab.py DIR_A DIR_B [--s2d]
     python3 step_ab.py DIR_A DIR_B --kernels-af
+    python3 step_ab.py DIR_A DIR_B --kernels-eg
 
 Each turn is a fresh process that imports the checkout's own
 ``chip_smoke.py`` and package (from ``DIR``) and runs its path (a),
@@ -36,6 +37,15 @@ a call from a complete profiler session of 20 calls
 (``profiled_device_ms``, ``_complete_events``), and the median host time
 of 200 calls (``host_us``: ``perf_counter``, the device not waited
 for).
+
+With ``--kernels-eg`` a turn times kernels E and G alone, the same way
+and through the wrappers both checkouts share: E at the selection's
+shapes (``batch_pass`` at 131,072 x 2048, q = 8, 50,000 rows labeled;
+``min_fold`` of 1,024 labeled centers there; ``fold_draw`` on the pooled
+BADGE factors of a 13,000-row partition, [13,000, 16] + [13,000, 32],
+and that partition's whole randomized scan of 1,000 picks on the host
+clock), and G pooled and unpooled at B = 256, C = 1000, D = 2048.  Each
+profiler reading is held to the work's bytes bound as its floor.
 """
 
 from __future__ import annotations
@@ -144,8 +154,73 @@ print("TURN " + json.dumps(res))
 """
 
 
-def turn(path: str, s2d: bool = False, kernels: bool = False) -> dict:
-    code = (_KERNEL_TURN.format(dir=path) if kernels
+_KERNEL_EG_TURN = """
+import json, sys, time
+sys.path.insert(0, {dir!r})
+import torch
+import chip_smoke as cs
+from active_learning_tpu_torch.ops import badge as bg
+from active_learning_tpu_torch.ops import kcenter as kc
+from active_learning_tpu_torch.strategies import kcenter as skc
+dev = torch.device("cuda")
+hbm = cs.HBM_BYTES_PER_S
+
+
+def reading(fn, nbytes, reps=20):
+    dev_ms = cs.profiled_device_ms(fn, nbytes / hbm * 1e3, reps=reps)[0]
+    events = cs._complete_events(fn, reps)[0]
+    return {{"ms": cs.cuda_ms(fn, reps=reps), "device_ms": dev_ms,
+             "kernels_a_call": sum(n for n, _ in events.values()) / reps,
+             "host_us": cs.host_us(fn, reps=100)}}
+
+
+res = {{}}
+n, d, q = 131072, 2048, 8
+factors, sqn, md, sel, labeled, rest = cs._kc_pool(dev, n, (d,), 7, 50000)
+state = kc.BatchState(n, n, q, dev)
+kc.batch_pass(factors, sqn, md, sel, state)  # passes fold q centers now
+res["batch_pass"] = reading(
+    lambda: kc.batch_pass(factors, sqn, md, sel, state), n * (d + 4) * 4.0)
+chunk = labeled[:1024].clone()
+res["min_fold_1024"] = reading(
+    lambda: kc.min_fold(factors, sqn, md, chunk), n * (d + 2) * 4.0,
+    reps=5)
+del factors, sqn, md, sel, state
+torch.cuda.empty_cache()
+n = 13000
+a_f, sqn, md, sel, labeled, _ = cs._kc_pool(dev, n, (16, 32), 8, 5000)
+out_v = torch.zeros(1, device=dev)
+out_i = torch.zeros(1, dtype=torch.int64, device=dev)
+none = torch.zeros(0, dtype=torch.int64, device=dev)
+res["fold_draw_pooled"] = reading(
+    lambda: kc.fold_draw(a_f, sqn, md, sel, none, (1, 2), out_v, out_i),
+    n * (48 + 4) * 4.0)
+walls = []
+for _ in range(3):
+    md1, sel1 = md.clone(), sel.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    skc._kcenter_scan(a_f, sqn, md1, sel1, 1000, True, (3, 4))
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+res["draw_scan_1000_s"] = walls
+del a_f, sqn, md, sel
+torch.cuda.empty_cache()
+g = torch.Generator(device=dev).manual_seed(4)
+b, c, d = 256, 1000, 2048
+logits = torch.randn(b, c, device=dev, generator=g) * 3.0
+emb = torch.randn(b, d, device=dev, generator=g)
+res["badge_pooled"] = reading(lambda: bg.badge_factors(logits, emb, True),
+                              4.0 * (b * c + b * d + b * 48))
+res["badge_unpooled"] = reading(
+    lambda: bg.badge_factors(logits, emb, False), 4.0 * 2 * b * c)
+print("TURN " + json.dumps(res))
+"""
+
+
+def turn(path: str, s2d: bool = False, kernels: str = "") -> dict:
+    code = (_KERNEL_TURN.format(dir=path) if kernels == "af"
+            else _KERNEL_EG_TURN.format(dir=path) if kernels == "eg"
             else _TURN.format(dir=path, s2d=s2d))
     proc = subprocess.run([sys.executable, "-c", code],
                           cwd=path, capture_output=True, text=True,
@@ -158,8 +233,11 @@ def turn(path: str, s2d: bool = False, kernels: bool = False) -> dict:
 
 
 def main(argv) -> int:
-    s2d, kernels = "--s2d" in argv, "--kernels-af" in argv
-    argv = [a for a in argv if a not in ("--s2d", "--kernels-af")]
+    s2d = "--s2d" in argv
+    kernels = ("af" if "--kernels-af" in argv
+               else "eg" if "--kernels-eg" in argv else "")
+    argv = [a for a in argv
+            if a not in ("--s2d", "--kernels-af", "--kernels-eg")]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -172,7 +250,9 @@ def main(argv) -> int:
               flush=True)
     if kernels:
         print(json.dumps({label: {"dir": dirs[label], **{
-            name: {k: [r[name][k] for r in rs] for k in rs[0][name]}
+            name: ({k: [r[name][k] for r in rs] for k in rs[0][name]}
+                   if isinstance(rs[0][name], dict)
+                   else [r[name] for r in rs])
             for name in rs[0]}} for label, rs in runs.items()}))
         return 0
     print(json.dumps({label: {"dir": dirs[label],

@@ -296,6 +296,69 @@ def test_badge_factors_pool_edges_match_jax(c, d):
     np.testing.assert_allclose(flat["grad_a"].numpy(), a, atol=1e-6)
 
 
+def _nonfinite(x, seed):
+    """Row r of ``x`` gets, by r % 8: nothing, a NaN, a +inf, a -inf, a
+    +inf and a -inf, a NaN and a +inf, two +inf, or -inf throughout."""
+    rng = np.random.default_rng(seed)
+    x = x.copy()
+    kinds = [(), (np.nan,), (np.inf,), (-np.inf,), (np.inf, -np.inf),
+             (np.nan, np.inf), (np.inf, np.inf), None]
+    for r in range(x.shape[0]):
+        vals = kinds[r % len(kinds)]
+        if vals is None:
+            x[r] = -np.inf
+        elif vals:
+            x[r, rng.choice(x.shape[1], len(vals), replace=False)] = vals
+    return x
+
+
+@pytest.mark.parametrize("pool_512", [False, True])
+@pytest.mark.parametrize("c,d", [(10, 512), (1000, 2048)])
+def test_badge_factors_match_jax_on_nonfinite_inputs(c, d, pool_512):
+    """Logit and embedding rows holding NaN, +inf and -inf, against the
+    JAX step's arithmetic (``jax.nn.softmax``, ``jnp.argmax``, pooling as
+    ``x @ M``): NaN and ±inf in the same entries, the finite ones within
+    1e-4.  A NaN or +inf logit makes a row's ``a`` NaN throughout; a -inf
+    logit is a probability of 0.  Pooled, a bin is NaN when its row holds
+    a NaN or ±inf outside the bin (``x_k * 0``), and +inf when the row's
+    only +inf lies inside it; C = 10 and D = 512 give overlapping bins."""
+    from active_learning_tpu.strategies.kcenter import \
+        adaptive_avg_pool_matrix
+
+    rng = np.random.default_rng(c + d)
+    b = 16
+    logits = _nonfinite(rng.normal(size=(b, c)).astype(np.float32) * 3,
+                        c)
+    # The embedding's kinds run one row behind the logits', so that a
+    # finite logit row meets each non-finite embedding kind.
+    emb = np.roll(_nonfinite(rng.normal(size=(b, d)).astype(np.float32),
+                             d), 1, axis=0)
+    z = jnp.asarray(logits)
+    a = jax.nn.softmax(z, axis=-1) - jax.nn.one_hot(
+        jnp.argmax(z, axis=-1), c, dtype=jnp.float32)
+    e = jnp.asarray(emb)
+    if pool_512:
+        h = min(16, c)
+        a = a @ jnp.asarray(adaptive_avg_pool_matrix(c, h))
+        e = e @ jnp.asarray(adaptive_avg_pool_matrix(d, int(512 / h)))
+    got = badge_ops.badge_factors(*_t(logits, emb), pool_512=pool_512)
+    for k, want in (("grad_a", np.asarray(a)), ("grad_e", np.asarray(e))):
+        assert got[k].shape == want.shape
+        _assert_same_nonfinite(got[k].numpy(), want, k)
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[k].numpy()[fin], want[fin],
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    assert np.isnan(np.asarray(a)[1]).all()
+    if pool_512:
+        ge = got["grad_e"].numpy()
+        # Row 2's embedding holds a NaN: every bin NaN.  Row 3's holds
+        # one +inf: +inf in the bins that hold it (two where bins
+        # overlap), NaN in the rest.
+        inf3 = np.isposinf(ge[3])
+        assert np.isnan(ge[2]).all() and 1 <= inf3.sum() <= 2
+        assert np.isnan(ge[3][~inf3]).all()
+
+
 def test_badge_factors_class_limit():
     """Kernel G keeps a logits row in 48 KB of shared memory beside its
     256 static bytes: C = MAX_CLASSES is taken (and its plain version

@@ -246,3 +246,95 @@ def test_host_syncs_stay_under_the_stated_count(budget, q):
     if budget >= 4 * q:
         assert scan["host_syncs"] < passes / 2
     assert pk.max_host_syncs(10000, 8) < 100
+
+
+NONFINITE = {"nan": np.nan, "+inf": np.inf, "-inf": -np.inf}
+
+
+def _nonfinite_pool(dims, kind, where):
+    """A 64-row pool, 9 rows labeled, with feature 2 of the fourth
+    unlabeled (or labeled) row of the first factor set to ``kind``."""
+    factors, labeled = _pool(1, 64, dims, 9)
+    rows = np.flatnonzero(labeled if where == "labeled" else ~labeled)
+    factors[0][rows[3], 2] = NONFINITE[kind]
+    return factors, labeled, int(rows[3])
+
+
+@pytest.mark.parametrize("where", ["unlabeled", "labeled"])
+@pytest.mark.parametrize("kind", list(NONFINITE))
+@pytest.mark.parametrize("mode", ["q1", "q8", "randomized"])
+@pytest.mark.parametrize("dims", [(6,), (5, 7)], ids=["one", "two"])
+def test_picks_match_jax_on_nonfinite_pools(dims, mode, kind, where):
+    """A row holding a NaN or a ±inf feature gets a NaN min distance (a
+    NaN feature, or inf - inf in the distance).  The deterministic scan
+    picks it first (``jnp.argmax``'s first NaN; an unlabeled row) and then,
+    every distance being NaN after a NaN center, the lowest selectable
+    rows.  The randomized draw's weights hold a NaN (a non-selectable
+    row's too, NaN * 0), so their sum is NaN and every draw is uniform
+    over the selectable rows.  Picks equal the JAX package's and the
+    recorded distances are NaN at the same picks.
+
+    The batched scan (q = 8) is held to the JAX package's q = 1 scan,
+    which its ``_kcenter_scan_batched`` promises to equal pick for pick.
+    On a ±inf row its own batched scan does not, on the CPU: x86 gives
+    inf - inf a NaN with the sign bit set, and ``lax.top_k`` ranks by
+    float32's total order, where that NaN lies below -inf, while
+    ``jnp.argmax`` ranks every NaN first.  On a NaN row (a positive NaN)
+    the two scans agree, and the port equals both."""
+    factors, labeled, row = _nonfinite_pool(dims, kind, where)
+    kw = ({"randomize": True} if mode == "randomized"
+          else {"batch_q": int(mode[1:])})
+    got, got_d, want, want_d = _both(factors, labeled, 10, 3, **kw)
+    if mode == "q8":
+        want_q8 = want
+        want = jk.kcenter_greedy(factors, labeled, 10,
+                                 rng=np.random.default_rng(3), batch_q=1)
+        want_d = jk.LAST_PICK_DISTS
+        if kind == "nan":
+            np.testing.assert_array_equal(got, want_q8)
+    np.testing.assert_array_equal(got, want)
+    _close_dists(got_d, want_d)
+    assert np.unique(got).size == 10 and not labeled[got].any()
+    if mode != "randomized":
+        assert np.isnan(got_d).any()
+        if where == "unlabeled":
+            assert got[0] == row
+
+
+@pytest.mark.parametrize("dims", [(6,), (5, 7)], ids=["one", "two"])
+def test_fold_propagates_nan_as_jax(dims):
+    """The fold's plain version (``fold_reference``, and the port's
+    ``batched_min_dist_update`` over it) against the JAX package's
+    ``batched_min_dist_update`` on rows holding a NaN, a +inf and a -inf
+    feature, with centers among them and a NaN already in min_dist: NaN
+    and ±inf at the same rows (``jnp.minimum`` of ``jnp.min`` propagates
+    NaN; so do ``torch.minimum`` and ``Tensor.min``), finite rows within
+    the fold bound."""
+    from active_learning_tpu_torch.ops import kcenter as kc
+
+    factors, _ = _pool(18, 40, dims, 0)
+    for r, v in ((3, np.nan), (8, np.inf), (12, -np.inf)):
+        factors[0][r, 1] = v
+    start = np.abs(np.random.default_rng(2).normal(size=40)).astype(
+        np.float32) * 50
+    start[20] = np.nan
+    start[21] = np.inf
+    jf = tuple(jnp.asarray(f) for f in factors)
+    tf = tuple(torch.from_numpy(f) for f in factors)
+    jsqn, tsqn = jk.self_sq_norms(jf), pk.self_sq_norms(tf)
+    bound = fold_bound(np.nan_to_num(np.asarray(jsqn), posinf=0.0),
+                       sum(dims))
+    for centers in ([1, 5], [3, 9], [8], [12, 30], [3, 8, 12]):
+        idx = np.array(centers)
+        want = np.asarray(jax_scoring.batched_min_dist_update(
+            jf, jsqn, jnp.asarray(start), jnp.asarray(idx)))
+        got = torch.from_numpy(start.copy())
+        kc.fold_reference(tf, tsqn, got, torch.from_numpy(idx))
+        via = scoring.batched_min_dist_update(
+            tf, tsqn, torch.from_numpy(start.copy()), torch.from_numpy(idx))
+        for g in (got.numpy(), via.numpy()):
+            for f in (np.isnan, np.isposinf, np.isneginf):
+                np.testing.assert_array_equal(f(g), f(want), str(centers))
+            fin = np.isfinite(want)
+            assert (np.abs(g[fin] - want[fin]) <= bound[fin]).all()
+        assert np.isnan(want[20]) and np.isnan(want[3])

@@ -650,6 +650,195 @@ def test_kcenter_batch_pass_matches_the_q1_scan(cuda_device, n, dims):
         assert bool(((dp - db).abs() <= 2 * tol).all())
 
 
+def _kc_nonfinite_pool(dev, n, dims, seed, center_kind=None,
+                       inf_only=False):
+    """A seeded pool (64 labeled rows, the first) whose first factor holds
+    a NaN at unlabeled rows 100 and 230, +inf at 101 and -inf at 102, so
+    their min distances come out NaN (a NaN feature, or inf - inf); the
+    labeled row 5's min distance is set to NaN too.  ``center_kind``: the
+    8 centers are rows 200.. (finite), or lead with the NaN row 100 or the
+    +inf row 101.  ``inf_only``: only the +inf at row 101, and one
+    labeled row (row 0, its feature 1 negative), so row 101's distance to
+    it is inf + inf: +inf, not NaN.  Returns the pool's factors, sqn,
+    min_dist to the labeled rows (plain version), selectable mask and
+    centers."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    factors = tuple(torch.randn(n, d, device=dev, generator=g)
+                    for d in dims)
+    marks = ((100, float("nan")), (230, float("nan")),
+             (101, float("inf")), (102, float("-inf")), (0, -1.0))
+    for row, v in marks[2:3] + marks[4:] if inf_only else marks[:4]:
+        factors[0][row, 1] = v
+    sqn = None
+    for f in factors:
+        sq = (f * f).sum(dim=1)
+        sqn = sq if sqn is None else sqn * sq
+    labeled = torch.arange(1 if inf_only else 64, device=dev)
+    min_dist = torch.full((n,), float("inf"), device=dev)
+    kc.fold_reference(factors, sqn, min_dist, labeled)
+    if not inf_only:
+        min_dist[5] = float("nan")
+    sel = torch.ones(n, device=dev)
+    sel[labeled] = 0.0
+    centers = torch.arange(200, 208, device=dev)
+    if center_kind == "nan":
+        centers[0] = 100
+    elif center_kind == "+inf":
+        centers[0] = 101
+    return factors, sqn, min_dist, sel, centers
+
+
+def _same_nan_inf_within(got, want, tol):
+    """NaN and ±inf at the same entries, the finite ones within tol."""
+    assert _same_special(got, want)
+    fin = torch.isfinite(want)
+    return bool(((got - want).abs()[fin] <= tol.expand_as(want)[fin]).all())
+
+
+KC_NONFINITE = [(1000, (37,)), (1000, (5, 7)), (13000, (2048,)),
+                (13000, (16, 32))]
+
+
+@pytest.mark.parametrize("center_kind", [None, "nan", "+inf"])
+@pytest.mark.parametrize("n,dims", KC_NONFINITE)
+def test_kcenter_fold_select_on_nonfinite_rows(cuda_device, n, dims,
+                                               center_kind):
+    """The fold keeps NaN where the plain version has it (``min.NaN``:
+    jnp.minimum's rule, where fminf dropped it), and the top-q ranks a NaN
+    first, ties to the lower row: the NaN rows 100 and 230 lead (the +inf
+    row's inf - inf is NaN too); after a NaN center every distance is NaN
+    and the lowest selectable rows lead."""
+    factors, sqn, md0, sel0, centers = _kc_nonfinite_pool(
+        cuda_device, n, dims, n, center_kind)
+    c_sqn = sqn[centers]
+    tol = kc.fold_tolerance(sqn, float(c_sqn[torch.isfinite(c_sqn)].max()),
+                            sum(dims))
+    tol = torch.nan_to_num(tol, nan=0.0, posinf=0.0)
+    for q in (1, 8):
+        md_k, sel_k = md0.clone(), sel0.clone()
+        md_p, sel_p = md0.clone(), sel0.clone()
+        vk, ik = kc.fold_select(factors, sqn, md_k, sel_k, centers, q)
+        vp, ip = kc.fold_select_reference(factors, sqn, md_p, sel_p,
+                                          centers, q)
+        torch.cuda.synchronize()
+        assert torch.equal(sel_k, sel_p)
+        assert _same_nan_inf_within(md_k, md_p, tol)
+        own_v, own_i = kc.top_q(torch.where(
+            sel_k > 0, md_k, torch.full_like(md_k, -float("inf"))), q)
+        assert torch.equal(ik, own_i) and _same_special(vk, own_v)
+        # The NaN ranks exactly; a finite pick may differ from the plain
+        # one only between rows whose plain distances lie within the
+        # tolerance.
+        assert _same_special(vk, vp) and bool(torch.isnan(vk[0]))
+        nan = torch.isnan(vp)
+        assert torch.equal(ik[nan], ip[nan])
+        gap = (md_p[ik[~nan]] - vp[~nan]).abs()
+        assert bool((gap <= 2 * tol.max()).all())
+
+
+@pytest.mark.parametrize("n,dims", KC_NONFINITE)
+def test_kcenter_min_fold_on_nonfinite_rows(cuda_device, n, dims):
+    """The tile GEMM's min keeps NaN: centers that hold the NaN, +inf and
+    -inf rows make NaN (or ±inf) where the plain version has them."""
+    factors, sqn, _, _, _ = _kc_nonfinite_pool(cuda_device, n, dims, n + 1)
+    centers = torch.cat([torch.tensor([100, 101, 102, 230],
+                                      device=cuda_device),
+                         torch.arange(300, 300 + 200, device=cuda_device)])
+    for cs in (centers[4:], centers):
+        md_k = torch.full((n,), float("inf"), device=cuda_device)
+        md_k[7] = float("nan")
+        md_p = md_k.clone()
+        kc.min_fold(factors, sqn, md_k, cs)
+        kc.fold_reference(factors, sqn, md_p, cs)
+        torch.cuda.synchronize()
+        tol = torch.nan_to_num(kc.fold_tolerance(
+            sqn, float(sqn[centers[4:]].max()), sum(dims)), nan=0.0,
+            posinf=0.0)
+        assert _same_nan_inf_within(md_k, md_p, tol)
+        assert bool(torch.isnan(md_k[100]) and torch.isnan(md_k[7]))
+
+
+@pytest.mark.parametrize("case", ["nan_unlabeled", "nan_labeled_only",
+                                  "inf_weights"])
+@pytest.mark.parametrize("n,dims", KC_NONFINITE[:2] + KC_NONFINITE[3:])
+def test_kcenter_fold_draw_on_nonfinite_rows(cuda_device, n, dims, case):
+    """The D² draw copies the reference's ``where(sum(p) > 0, p,
+    selectable)``: a NaN weight anywhere (an unlabeled NaN row, or only a
+    labeled one: NaN * 0) makes every draw uniform over the selectable
+    rows; +inf weights with no NaN draw the first +inf row.  Rows and
+    weights (NaN included) as the plain version's over 20 steps."""
+    factors, sqn, md0, sel0, _ = _kc_nonfinite_pool(cuda_device, n, dims,
+                                                    n + 2)
+    if case == "nan_labeled_only":
+        for r in (100, 101, 102, 230):
+            md0[r] = 1.0
+    elif case == "inf_weights":
+        md0 = torch.nan_to_num(md0, nan=1.0)
+        md0[[40, 300, 301]] = float("inf")
+        sel0 = torch.ones_like(sel0)
+        sel0[40] = 0.0
+        md0[40] = 0.0
+    keys = threefry.split(threefry.prng_key(n), 20)
+    md_k, sel_k, md_p, sel_p = md0.clone(), sel0.clone(), md0.clone(), \
+        sel0.clone()
+    pk = torch.zeros(20, dtype=torch.int64, device=cuda_device)
+    vk = torch.zeros(20, device=cuda_device)
+    vp = torch.zeros(20, device=cuda_device)
+    none = torch.zeros(0, dtype=torch.int64, device=cuda_device)
+    for i in range(20):
+        key = (int(keys[i, 0]), int(keys[i, 1]))
+        kc.fold_draw(factors, sqn, md_k, sel_k, pk[i - 1:i] if i else none,
+                     key, vk[i:i + 1], pk[i:i + 1])
+        prev = torch.tensor([int(pk[i - 1])], device=cuda_device) if i \
+            else none
+        v, ip = kc.fold_draw_reference(factors, sqn, md_p, sel_p, prev, key)
+        vp[i] = v
+        assert int(ip) == int(pk[i]), i
+    if case == "inf_weights":
+        assert int(pk[0]) == 300
+    tol = torch.nan_to_num(kc.fold_tolerance(sqn, 0.0, sum(dims)),
+                           nan=0.0, posinf=0.0).max()
+    assert _same_nan_inf_within(vk, vp, tol + 1e-6 * vp.abs().nan_to_num())
+
+
+@pytest.mark.parametrize("inf_only", [False, True])
+@pytest.mark.parametrize("n,dims", KC_NONFINITE)
+def test_kcenter_batch_pass_on_nonfinite_rows(cuda_device, n, dims,
+                                              inf_only):
+    """The batched scan on a pool with NaN and ±inf rows: picks equal to
+    the q = 1 kernel scan's, distances bit-equal (NaN at the same picks),
+    and equal to the plain batched scan's.  The NaN rows come first, then,
+    every distance NaN after a NaN center, the lowest selectable rows,
+    one a pass (the re-check's max.NaN stops at a NaN).  ``inf_only``: the
+    +inf row's distance is +inf, so it comes first and its [q, q]
+    distances (NaN or +inf) stop the re-check."""
+    from active_learning_tpu_torch.strategies import kcenter as skc
+
+    factors, sqn, md0, sel0, _ = _kc_nonfinite_pool(
+        cuda_device, n, dims, n + 3, inf_only=inf_only)
+    budget = 40
+    pb, db = skc._kcenter_scan_batched(factors, sqn, md0.clone(),
+                                       sel0.clone(), budget, 8)
+    p1, d1 = skc._kcenter_scan(factors, sqn, md0.clone(), sel0.clone(),
+                               budget, False, (0, 0))
+    torch.cuda.synchronize()
+    assert torch.equal(pb, p1)
+    assert _same_special(db, d1)
+    fin = torch.isfinite(d1)
+    assert torch.equal(db[fin].view(torch.int32), d1[fin].view(torch.int32))
+    state = kc.BatchState(n, budget, 8, cuda_device)
+    md, sel = md0.clone(), sel0.clone()
+    while int(state.count[0]) < budget:
+        kc.batch_pass_reference(factors, sqn, md, sel, state)
+        state.passes += 1
+    assert torch.equal(pb, state.picks[:budget])
+    assert _same_special(db, state.dists[:budget])
+    if inf_only:
+        assert int(pb[0]) == 101 and bool(torch.isposinf(db[0]))
+    else:
+        assert int(pb[0]) == 100 and bool(torch.isnan(db).all())
+
+
 def test_kcenter_wrappers_raise_rather_than_fall_back(cuda_device):
     f = torch.zeros(10, 4, device=cuda_device)
     v = torch.zeros(10, device=cuda_device)
@@ -762,11 +951,13 @@ def test_head_pair_norms_kernel_is_symmetric_bit_for_bit(cuda_device, c, d):
 
 @pytest.mark.parametrize("pool_512", [False, True])
 @pytest.mark.parametrize("b,c,d", [(5, 10, 512), (256, 1000, 2048),
-                                   (3, 3, 40), (2, bg.MAX_CLASSES, 512)])
+                                   (3, 3, 40), (2, bg.MAX_CLASSES, 512),
+                                   (3, 10, 20000)])
 def test_badge_kernel_matches_plain(cuda_device, b, c, d, pool_512):
     """softmax - onehot within 1e-6 (a sum of C float32 terms in another
     order); pooled bins within 1e-5 relative and 1e-6 absolute (the
-    plain version pools by a matrix product)."""
+    plain version pools by a matrix product).  D = 20,000 pooled takes
+    the opt-in past 48 KB of shared memory."""
     g = torch.Generator(device=cuda_device).manual_seed(b * c)
     logits = torch.randn(b, c, device=cuda_device, generator=g) * 3.0
     emb = torch.randn(b, d, device=cuda_device, generator=g)
@@ -778,6 +969,36 @@ def test_badge_kernel_matches_plain(cuda_device, b, c, d, pool_512):
     for k in ("grad_a", "grad_e"):
         assert got[k].shape == ref[k].shape
         torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("pool_512", [False, True])
+@pytest.mark.parametrize("b,c,d", [(16, 10, 512), (16, 1000, 2048),
+                                   (8, 3, 40), (8, 1001, 2050)])
+def test_badge_kernel_on_nonfinite_rows(cuda_device, b, c, d, pool_512):
+    """Logit and embedding rows with NaN, +inf and -inf: NaN and ±inf in
+    the same entries as the plain version (a NaN or +inf logit makes the
+    row's a NaN; pooled, a bin is NaN when its row holds a non-finite
+    element outside it, as ``x @ M``'s ``x_k * 0`` is; a bin holding the
+    row's only +inf stays +inf), the finite entries within 1e-5 relative
+    and 1e-6 absolute.  (8, 1001, 2050) takes the scalar loads and
+    copies; C = 10, D = 512 overlapping bins."""
+    g = torch.Generator(device=cuda_device).manual_seed(b * c + 1)
+    logits = torch.randn(b, c, device=cuda_device, generator=g) * 3.0
+    emb = torch.randn(b, d, device=cuda_device, generator=g)
+    logits = _nonfinite_rows(logits, list(NONFINITE_KINDS), seed=c)
+    emb = _nonfinite_rows(emb, list(NONFINITE_KINDS)[1:] + ["finite"],
+                          seed=d)
+    got = bg.badge_factors(logits, emb, pool_512)
+    ref = bg.badge_factors_reference(logits, emb, pool_512)
+    torch.cuda.synchronize()
+    for k in ("grad_a", "grad_e"):
+        assert got[k].shape == ref[k].shape
+        assert _same_special(got[k], ref[k]), k
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-6,
+                                   equal_nan=True)
+    if pool_512:
+        assert bool(torch.isposinf(ref["grad_e"]).any())
+        assert bool(torch.isnan(ref["grad_e"]).any())
 
 
 # -- kernel H: the balancing pick ---------------------------------------------
