@@ -79,14 +79,20 @@ class SchedulerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PretrainedConfig:
-    """SSL / transfer checkpoint ingestion.  The port reads only whether
-    a path is configured: loading such a checkpoint waits until the
-    files are in the repository (ROADMAP.md)."""
+    """SSL / transfer checkpoint ingestion (``utils/pretrained.py``): the
+    torch checkpoint's path and the reference's key surgery, keys kept
+    when they hold a ``required_key`` substring, dropped when they hold
+    a ``skip_key`` one, renamed by the first matching ``replace_key``
+    pair."""
 
     path: Optional[str] = None
     required_key: Optional[Tuple[str, ...]] = None
     skip_key: Optional[Tuple[str, ...]] = None
     replace_key: Optional[Tuple[Tuple[str, str], ...]] = None
+
+    @property
+    def replace_map(self) -> Dict[str, str]:
+        return dict(self.replace_key or ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +151,16 @@ class VAALConfig:
     lr_discriminator: float = 1e-3
 
 
+@dataclasses.dataclass(frozen=True)
+class ImbalanceConfig:
+    """Synthetic class imbalance (the reference's --imbalance_type /
+    --imbalance_factor / --imbalance_seed): "exp", "step" or None."""
+
+    imbalance_type: Optional[str] = None
+    imbalance_factor: float = 0.1
+    imbalance_seed: int = 0
+
+
 @dataclasses.dataclass
 class ExperimentConfig:
     """Top-level experiment configuration (the CLI flags the training
@@ -156,7 +172,19 @@ class ExperimentConfig:
     ckpt_path: str = "./checkpoint"
 
     dataset: str = "cifar10"
+    # Where the dataset's files are (CIFAR-10: the directory holding, or
+    # to hold, cifar-10-batches-py).
+    dataset_dir: Optional[str] = None
     arg_pool: str = "default"
+    # Root onto which an arg pool's relative pretrained checkpoint path
+    # is rebased.
+    pretrained_root: Optional[str] = None
+    imbalance: ImbalanceConfig = dataclasses.field(
+        default_factory=ImbalanceConfig)
+    # Fetch CIFAR-10 (md5-checked) when its batches are absent.
+    download_data: bool = False
+    # The first 50 rows of each split only.
+    debug_mode: bool = False
 
     strategy: str = "RandomSampler"
     rounds: int = 5

@@ -9,14 +9,16 @@ Sources (the reference's arg-pool modules):
   * "ssp_finetuning_imbalanced_cifar10_imb_0_1"  /  "..._0_01"
   * "synthetic"              — the egress-free synthetic dataset.
 
-The pretrained paths are kept as the JAX package names them; the port
-does not load them yet (ROADMAP.md), so a pool that configures one
-trains only where the trainer's rule allows (see train/trainer.py).
+The pretrained paths are kept as the JAX package names them, relative
+to the directory the run starts in or to ``pretrained_root``
+(``get_train_config``); ``utils/pretrained.py`` loads them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import os
+from typing import Dict, Optional
 
 from ..config import (LoaderConfig, OptimizerConfig, PretrainedConfig,
                       SchedulerConfig, TrainConfig)
@@ -119,14 +121,23 @@ ARG_POOLS.register("synthetic", {
 })
 
 
-def get_train_config(arg_pool: str, dataset: str) -> TrainConfig:
+def get_train_config(arg_pool: str, dataset: str,
+                     pretrained_root: Optional[str] = None) -> TrainConfig:
     """Resolve ``(arg_pool, dataset) -> TrainConfig``; KeyError for an
-    unknown pool or a dataset the pool has no entry for."""
+    unknown pool or a dataset the pool has no entry for.  A relative
+    pretrained path is rebased onto ``pretrained_root`` when given (the
+    reference's fixed ``../pretrained_ckpt`` layout)."""
     pool = ARG_POOLS.get(arg_pool)
     try:
-        return pool[dataset]
+        cfg = pool[dataset]
     except KeyError:
         known = ", ".join(sorted(pool))
         raise KeyError(
             f"arg pool '{arg_pool}' has no entry for dataset '{dataset}' "
             f"(has: {known})") from None
+    if (pretrained_root and cfg.pretrained.path
+            and not os.path.isabs(cfg.pretrained.path)):
+        cfg = dataclasses.replace(cfg, pretrained=dataclasses.replace(
+            cfg.pretrained,
+            path=os.path.join(pretrained_root, cfg.pretrained.path)))
+    return cfg

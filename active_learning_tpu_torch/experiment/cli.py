@@ -17,6 +17,13 @@ makes this process rank R of N instead (one per host or card; start
 each yourself).  ``--grad_allreduce`` and ``--scale_batch`` take the
 JAX CLI's values.
 
+The CIFAR-10 sweep's flags are the JAX CLI's: ``--dataset {cifar10,
+imbalanced_cifar10}`` read from ``--dataset_dir`` (fetched there with
+``--download_data``), ``--imbalance_{type,factor,seed}``, ``--debug_mode``
+and ``--pretrained_root``, onto which an arg pool's relative checkpoint
+path (``ssp_finetuning``, ``ssp_finetuning_imbalanced_cifar10_imb_*``)
+is rebased.
+
 A flag of the JAX CLI that the port does not carry yet
 (``--resume_training``, the resident/stream/fleet knobs,
 ``--pool_sharding``, ...) and a dataset or strategy not ported yet exit
@@ -30,17 +37,15 @@ import argparse
 import uuid
 from typing import List, Optional
 
-from ..config import ExperimentConfig, VAALConfig
+from ..config import ExperimentConfig, ImbalanceConfig, VAALConfig
 
 # Flags of the JAX CLI this port does not carry yet: name -> takes a value.
 UNSUPPORTED_FLAGS = {
     "--project_name": True, "--disable_metrics": False,
     "--metrics_backend": True,
-    "--metrics_rotate_bytes": True, "--dataset_dir": True,
-    "--pretrained_root": True, "--imbalance_type": True,
-    "--imbalance_factor": True, "--imbalance_seed": True,
-    "--resume_training": False, "--download_data": False,
-    "--debug_mode": False, "--profile_dir": True, "--profile_rounds": True,
+    "--metrics_rotate_bytes": True,
+    "--resume_training": False,
+    "--profile_dir": True, "--profile_rounds": True,
     "--disable_telemetry": False, "--heartbeat_every_s": True,
     "--export_trace": False, "--watchdog": False,
     "--stall_deadline_s": True, "--prometheus_file": True,
@@ -51,7 +56,8 @@ UNSUPPORTED_FLAGS = {
     "--compilation_cache_dir": True,
 }
 
-PORTED_DATASETS = ("synthetic",)
+PORTED_DATASETS = ("cifar10", "imbalanced_cifar10", "synthetic",
+                   "imbalanced_synthetic")
 
 
 class _NotPorted(argparse.Action):
@@ -73,7 +79,14 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, default="cifar10",
                    choices=["cifar10", "imbalanced_cifar10", "imagenet",
                             "imbalanced_imagenet", "synthetic"])
+    p.add_argument("--dataset_dir", type=str, default=None)
     p.add_argument("--arg_pool", type=str, default="default")
+    p.add_argument("--pretrained_root", type=str, default=None,
+                   help="rebase an arg pool's relative pretrained-ckpt path")
+    p.add_argument("--imbalance_type", type=str, default=None,
+                   choices=[None, "exp", "step"])
+    p.add_argument("--imbalance_factor", type=float, default=0.1)
+    p.add_argument("--imbalance_seed", type=int, default=0)
     p.add_argument("--strategy", type=str, default="RandomSampler")
     p.add_argument("--rounds", type=int, default=5)
     p.add_argument("--round_budget", type=int, default=5000)
@@ -87,6 +100,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_epoch", type=int, default=60)
     p.add_argument("--early_stop_patience", type=int, default=30,
                    help="0 disables early stopping")
+    p.add_argument("--download_data", action="store_true",
+                   help="fetch CIFAR-10 (md5-checked) when absent")
+    p.add_argument("--debug_mode", action="store_true")
     p.add_argument("--dtype", type=str, default=None,
                    choices=["auto", "bfloat16", "float32"],
                    help="compute precision (params/BN stay float32)")
@@ -146,7 +162,13 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
     return ExperimentConfig(
         exp_name=args.exp_name, exp_hash=args.exp_hash,
         log_dir=args.log_dir, ckpt_path=args.ckpt_path, dataset=args.dataset,
-        arg_pool=args.arg_pool, strategy=args.strategy, rounds=args.rounds,
+        dataset_dir=args.dataset_dir, arg_pool=args.arg_pool,
+        pretrained_root=args.pretrained_root,
+        imbalance=ImbalanceConfig(imbalance_type=args.imbalance_type,
+                                  imbalance_factor=args.imbalance_factor,
+                                  imbalance_seed=args.imbalance_seed),
+        download_data=args.download_data, debug_mode=args.debug_mode,
+        strategy=args.strategy, rounds=args.rounds,
         round_budget=args.round_budget, freeze_feature=args.freeze_feature,
         init_pool_size=args.init_pool_size,
         init_pool_type=args.init_pool_type, model=args.model,
@@ -186,7 +208,7 @@ def parse(argv: List[str]) -> ExperimentConfig:
                      f"(ROADMAP.md); the port carries "
                      f"{', '.join(STRATEGIES.names())}")
     try:
-        get_train_config(args.arg_pool, args.dataset)
+        get_train_config(args.arg_pool, args.dataset, args.pretrained_root)
     except KeyError as exc:
         parser.error(str(exc.args[0]))
     return args_to_config(args)

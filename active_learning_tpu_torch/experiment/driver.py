@@ -141,8 +141,8 @@ def build_experiment(cfg: ExperimentConfig,
     device = mesh.device
     logger = get_logger()
     if train_cfg is None:
-        train_cfg = arg_pools_lib.get_train_config(cfg.arg_pool,
-                                                   cfg.dataset)
+        train_cfg = arg_pools_lib.get_train_config(
+            cfg.arg_pool, cfg.dataset, pretrained_root=cfg.pretrained_root)
     # --fused_optimizer / --optim_state_dtype / --grad_allreduce beat the
     # arg pool.
     overrides = {k: getattr(cfg, k) for k in ("fused_optimizer",
@@ -186,7 +186,10 @@ def build_experiment(cfg: ExperimentConfig,
                 f"{wire} wire form (accuracy delta {delta} <= "
                 f"{INT8_PROBE_MAX_ACC_DELTA})")
     if data is None:
-        data = get_data(cfg.dataset)
+        data = get_data(cfg.dataset, data_path=cfg.dataset_dir,
+                        debug_mode=cfg.debug_mode,
+                        imbalance_args=cfg.imbalance,
+                        download=cfg.download_data)
     train_set, test_set, al_set = data
     num_classes = al_set.num_classes
     if model is None:

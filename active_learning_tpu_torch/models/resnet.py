@@ -32,10 +32,12 @@ Training mode (``model.train()``) uses batch statistics (the global
 batch's when ``set_sync_group`` gave the BatchNorms a group of ranks,
 as the JAX model's ``clone(axis_name=...)`` does) and updates the
 running statistics outside the graph, ``ra = 0.9·ra + 0.1·batch`` with
-the biased batch variance, as flax does.  Eval-mode BatchNorm has no
-backward (kernel B is forward-only), so a forward that needs gradients
-through an eval-mode BatchNorm raises: that is pretrained fine-tuning,
-still to be ported (ROADMAP.md).
+the biased batch variance, as flax does.  Eval-mode BatchNorm with
+gradients recorded (pretrained fine-tuning: the reference keeps
+BatchNorm in eval mode under a checkpoint) runs ``ops.bn_act``'s
+``BatchNormEval``: kernel B forward, kernel B′ backward, with the
+coefficients made in the graph from ``scale`` and ``bias`` that step;
+the cached coefficients serve only forwards that record no gradient.
 """
 
 from __future__ import annotations
@@ -226,8 +228,9 @@ class BatchNorm(nn.Module):
     """BatchNorm with float32 ``scale``/``bias`` parameters and float32
     running ``mean``/``var``, with an optional residual add and ReLU
     fused in.  Eval mode applies the running statistics through kernel
-    B; training mode normalizes with the batch statistics through
-    kernel C and updates the running ones.  ``fused_stats`` selects the
+    B (differentiable through kernel B′ when gradients are recorded);
+    training mode normalizes with the batch statistics through kernel C
+    and updates the running ones.  ``fused_stats`` selects the
     JAX package's ``FusedBatchNorm`` formula (bf16 statistics), else
     flax ``nn.BatchNorm``'s."""
 
@@ -270,12 +273,15 @@ class BatchNorm(nn.Module):
                 residual, relu, self.group, (self.mean, self.var))
             return y
         if torch.is_grad_enabled() and (
-                x.requires_grad or self.scale.requires_grad):
-            raise NotImplementedError(
-                "training through an eval-mode BatchNorm (pretrained "
-                "fine-tuning) needs a backward for kernel B, still to be "
-                "ported (ROADMAP.md); train BN in training mode, or run "
-                "the forward under torch.no_grad()")
+                x.requires_grad or self.scale.requires_grad
+                or self.bias.requires_grad
+                or (residual is not None and residual.requires_grad)):
+            # Fine-tuning through eval-mode BN: this step's coefficients,
+            # in the graph, so scale and bias get their gradients.
+            coeffs = bn_act_lib.bn_coefficients(
+                self.scale, self.bias, self.mean, self.var, self.eps,
+                self.dtype, self.fused_stats)
+            return bn_act_lib.bn_act_train(x, coeffs, residual, relu)
         return bn_act_lib.bn_act(x, self.coefficients(), residual, relu)
 
 

@@ -1,5 +1,6 @@
 """The port's hand-written kernels: kernel A ``prob_stats`` (CUDA),
-kernel B ``bn_act`` (CUDA), kernel C ``bn_train`` (CUDA: the
+kernel B ``bn_act`` (CUDA) and its backward, kernel B′
+``bn_act_backward`` (CUDA), kernel C ``bn_train`` (CUDA: the
 statistics and the backward reduction with their [C] chains, the N-rank
 chain, dx), kernel D ``fused_sgd`` (CUDA), kernel E ``kcenter`` (CUDA:
 fold + top-q, the batched greedy's pass with its re-check, fold + D²
@@ -21,6 +22,7 @@ def kernel_launches() -> Dict[str, int]:
     from . import (badge, balancing, bn_act, bn_train, boundary_radii,
                    fused_sgd, int8_sync, kcenter, prob_stats, stem_conv)
     return {"prob_stats": prob_stats.launches, "bn_act": bn_act.launches,
+            "bn_act_bwd": bn_act.bwd_launches,
             "bn_train_stats": bn_train.stats_launches,
             "bn_train_bwd_reduce": bn_train.reduce_launches,
             "bn_train_chain": bn_train.chain_launches,
@@ -46,6 +48,7 @@ def reset_kernel_launches() -> None:
                    fused_sgd, int8_sync, kcenter, prob_stats, stem_conv)
     prob_stats.launches = 0
     bn_act.launches = 0
+    bn_act.bwd_launches = 0
     bn_train.reset_launches()
     fused_sgd.launches = 0
     kcenter.reset_launches()

@@ -372,6 +372,7 @@ def bn_forward_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                 inv=inv, scale=scale, bias=bias,
                                 running=running), out)
     stats_launches += 1
+    _mark_written(running)
     mean, mean2, var, shift, mul, add = out.unbind(0)
     return mean, mean2, var, (shift, mul, add)
 
@@ -394,8 +395,18 @@ def bn_forward_chain(sums: torch.Tensor, world: int, scale: torch.Tensor,
                 pre=_f32(np.float32(1.0) / np.float32(world)), scale=scale,
                 bias=bias, running=running)
     _launch_chain(sums, ch)
+    _mark_written(running)
     mean, mean2, var, shift, mul, add = out.unbind(0)
     return mean, mean2, var, (shift, mul, add)
+
+
+def _mark_written(running) -> None:
+    """The running statistics were updated through raw pointers: bump
+    their version counters, as an in-place torch op would, so caches
+    keyed on ``_version`` (the eval-mode BatchNorm coefficients) see
+    the write."""
+    if running is not None:
+        torch.autograd.graph.increment_version(list(running))
 
 
 def _launch_chain(sums: torch.Tensor, ch: _Chain) -> None:

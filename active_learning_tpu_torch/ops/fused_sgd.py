@@ -244,6 +244,12 @@ def fused_sgd_update(params: List[torch.Tensor], grads: List[torch.Tensor],
         raise RuntimeError(f"fused_sgd kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    # The kernel wrote through raw pointers: mark the buffers as written,
+    # as an in-place torch op would, so caches keyed on ``_version`` (the
+    # models' compute-dtype weights and BatchNorm coefficients) see it.
+    torch.autograd.graph.increment_version(params)
+    if traces is not None:
+        torch.autograd.graph.increment_version(traces)
 
 
 _fn = None

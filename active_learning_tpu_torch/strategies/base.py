@@ -36,6 +36,7 @@ from ..registry import STRATEGIES
 from ..train import checkpoint as ckpt_lib
 from ..train.trainer import Trainer
 from ..utils.logging import get_logger
+from ..utils.pretrained import apply_pretrained
 from ..utils.metrics import MetricsSink, NullSink
 from . import scoring
 
@@ -113,19 +114,20 @@ class Strategy:
                                      self.exp_hash, self.round)
 
     def init_network_weights(self) -> None:
-        """Fresh random weights every round (so the head always resets).
-        A configured pretrained checkpoint is not loaded yet
-        (ROADMAP.md)."""
-        if self.train_cfg.has_pretrained:
-            raise NotImplementedError(
-                "loading a pretrained checkpoint "
-                f"({self.train_cfg.pretrained.path}) is still to be ported "
-                "(ROADMAP.md)")
+        """Fresh random weights every round (so the head always resets),
+        then the configured pretrained checkpoint overlaid on them
+        (``utils/pretrained.apply_pretrained``), as the JAX strategy does
+        every round."""
         self._inits += 1
         gen = torch.Generator().manual_seed(
             (self._init_seed << 20) + self._inits)
         init_weights(self.model, gen)
-        self.logger.info("Initialized Network Weights Randomly.")
+        if self.train_cfg.has_pretrained:
+            apply_pretrained(self.model, self.train_cfg.pretrained)
+            self.logger.info(f"Initialized network weights from "
+                             f"{self.train_cfg.pretrained.path}")
+        else:
+            self.logger.info("Initialized Network Weights Randomly.")
 
     def aux_state_bytes(self) -> Optional[bytes]:
         """The sampler's own state to save with the round (flax msgpack

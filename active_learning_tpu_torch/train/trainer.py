@@ -9,7 +9,9 @@ optimizer (``train/optim.py``) holds the momentum.
 
 A train step: uint8 rows to the device, the train view (crop + flip from
 the fit's ``torch.Generator``, then normalize), the forward in training
-mode (BatchNorm through kernel C), the weighted cross-entropy, the
+mode (BatchNorm through kernel C; in eval mode through kernels B and B′
+when a pretrained checkpoint is configured, as the reference fine-tunes
+with BatchNorm in eval mode), the weighted cross-entropy, the
 backward, the global gradient norm (optax.global_norm) and the update
 (kernel D on the fused path).
 
@@ -132,15 +134,10 @@ class Trainer:
                                       train_cfg.optimizer.lr)
         freeze = bool(getattr(model, "freeze_feature", False))
         # The reference trains with BN in eval mode whenever features are
-        # frozen or a pretrained checkpoint is configured.
-        train_bn = not (freeze or train_cfg.has_pretrained)
-        if not train_bn and not freeze:
-            raise NotImplementedError(
-                "training with eval-mode BatchNorm and gradients into the "
-                "encoder (pretrained fine-tuning) is still to be ported "
-                "(ROADMAP.md): it needs a backward for kernel B and the "
-                "pretrained checkpoints")
-        self.train_bn = train_bn
+        # frozen or a pretrained checkpoint is configured
+        # (strategy.py:366-367); fine-tuning then trains the encoder
+        # through eval-mode BN (kernel B′ backward).
+        self.train_bn = not (freeze or train_cfg.has_pretrained)
         self.host_s2d = getattr(model, "stem", "default") == "s2d"
         self.params = list(model.parameters())
         self.optimizer = make_optimizer(train_cfg)

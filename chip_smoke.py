@@ -3,8 +3,8 @@
     python3 chip_smoke.py [--detail PATH]
 
 Drives the port's serving, training and acquisition paths, the s2d
-stem through all three, and data-parallel training on two ranks
-(``active_learning_tpu_torch``), on the card,
+stem through all three, data-parallel training on two ranks and the
+CIFAR-10 fine-tuning sweep (``active_learning_tpu_torch``), on the card,
 through the entry points a user calls, and fails (non-zero exit) if any
 phase fails:
 
@@ -198,6 +198,26 @@ phase fails:
     payloads) and broadcast through NCCL, and ``int8_allreduce`` /
     ``int8_reduce_scatter`` called at N = 1 equal to their plain
     versions.
+20. The paper's imbalanced CIFAR-10 fine-tuning sweep: a full-size
+    facsimile of ``cifar-10-python.tar.gz`` (50,000 + 10,000 rows)
+    written and fetched through ``fetch_cifar10`` (file://, md5), and a
+    seeded SimCLR-layout ResNet-18 checkpoint; the loaded encoder equal
+    to the checkpoint; kernel B′ (``ops/bn_act.bn_act_backward``, CUDA:
+    the eval-mode BatchNorm backward) against its plain version at every
+    BatchNorm call of SSLResNet18 at B = 128, in bf16 and f32 (dx and
+    d_residual bit for bit, the sums and d scale / d bias within their
+    stated bounds), and timed beside its plain version, its bytes bound
+    and ``aten.native_batch_norm_backward(train=False)``; the first
+    imbalanced-CIFAR BASESampler job of the port's ``gen_jobs`` (SSLResNet18,
+    20,431 imbalanced rows, budget and initial pool 1,000, B = 128) through
+    ``python -m active_learning_tpu_torch``, cut to 2 epochs and 2
+    rounds: exit 0, the checkpoint overlaid each round, both rounds
+    tested, validation every epoch, kernels B, B′, D and F launched and
+    C not (BatchNorm in eval mode throughout); the first fine-tuning
+    step in float32 on the card against the CPU; and the cache repair:
+    after every validation of a 2-epoch fit (fine-tuning, and from
+    scratch with BatchNorm in training mode) the cached evaluation
+    equals a freshly loaded model's, count for count.
 
 Prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -1284,7 +1304,11 @@ def _complete_events(fn, reps: int):
     has recorded none or some of its kernels, after a long profiled
     window one session lost one kernel of 20 calls, and the sessions
     right after host-time loops have lost most kernels at first), so a
-    reading is taken again, up to eight sessions; then this fails."""
+    reading is taken again, up to eight sessions; then this fails.  A
+    session that recorded nothing lost all of its events and is not
+    compared: late in a long run (phase 20, after phase 19's process
+    group) every other session came back empty, and the ones between
+    were whole and equal."""
     seen, prev = [], None
     for _ in range(8):
         events = _kernel_events(fn, reps)
@@ -1293,7 +1317,8 @@ def _complete_events(fn, reps: int):
                 and all(c % reps == 0 for c in counts.values())):
             return events, max(len(seen) - 1, 0)
         seen.append(counts)
-        prev = counts
+        if events:
+            prev = counts
     raise AssertionError(f"the profiler lost kernel events in every "
                              f"session ({reps} calls each): {seen}")
 
@@ -1580,7 +1605,7 @@ def run_cli_path(tmp: str):
 
 def check_train_step_f32_against_cpu(devices=("cuda", "cpu"),
                                      stem="default", num_classes=10,
-                                     hw=32, b=32):
+                                     hw=32, b=32, pretrained=None):
     """One float32 train step of SSLResNet18 (CIFAR stem, B=32, 10
     classes, non-augmenting view) from the same numpy-seeded weights on
     the card (TF32 off) and on the CPU.  The loss within 1e-4 relative;
@@ -1588,9 +1613,15 @@ def check_train_step_f32_against_cpu(devices=("cuda", "cpu"),
     its norm: the same float32 network with every convolution and sum in
     another order on each side.  With ``stem="s2d"`` (and a class count
     other than 10) the ImageNet-layout model with the s2d stem, fed
-    space-to-depth rows, whose stem gradient is kernel I on the card."""
+    space-to-depth rows, whose stem gradient is kernel I on the card.
+    With ``pretrained`` (a SimCLR-layout checkpoint's path) the encoder
+    is the checkpoint's and the step is a fine-tuning step: BatchNorm in
+    eval mode, gradients through kernel B′ on the card."""
     from active_learning_tpu_torch.data.pipeline import space_to_depth
+    from active_learning_tpu_torch.config import PretrainedConfig
     from active_learning_tpu_torch.config import TrainConfig
+    from active_learning_tpu_torch.ops import bn_act as ba
+    from active_learning_tpu_torch.utils.pretrained import apply_pretrained
     from active_learning_tpu_torch.data.core import SYNTH_NORM, ViewSpec
     from active_learning_tpu_torch.device import set_float32_precision
     from active_learning_tpu_torch.models.factory import get_network
@@ -1604,18 +1635,31 @@ def check_train_step_f32_against_cpu(devices=("cuda", "cpu"),
              "label": rng.integers(0, num_classes, b).astype(np.int32),
              "mask": np.ones(b, np.float32)}
     view = ViewSpec(SYNTH_NORM, augment=False)
+    cfg = TrainConfig() if pretrained is None else TrainConfig(
+        pretrained=PretrainedConfig(path=pretrained,
+                                    required_key=("encoder",),
+                                    skip_key=("linear",)))
     out = []
     for device in devices:
         model = get_network("imagenet", "SSLResNet18",
                             num_classes=num_classes, dtype="float32",
                             stem=stem, device=device)
         init_weights(model, torch.Generator().manual_seed(SEED))
+        if pretrained is not None:
+            apply_pretrained(model, cfg.pretrained)
         before = [p.detach().cpu().clone() for p in model.parameters()]
-        trainer = Trainer(model, TrainConfig(), num_classes, device)
-        model.train()
+        trainer = Trainer(model, cfg, num_classes, device)
+        model.train(trainer.train_bn)
+        bwd = ba.bwd_launches
         loss, gnorm = trainer.train_step(
             trainer.to_device(batch), 0.1,
             torch.ones(num_classes, device=device), view, None)
+        if pretrained is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+            if trainer.train_bn or ba.bwd_launches - bwd != 20:
+                raise AssertionError(
+                    f"the fine-tuning step launched kernel B' "
+                    f"{ba.bwd_launches - bwd} times (20 BatchNorms)")
         delta = torch.cat([(p.detach().cpu() - b).reshape(-1) for p, b in
                            zip(model.parameters(), before)])
         out.append((float(loss), float(gnorm), delta))
@@ -1625,7 +1669,8 @@ def check_train_step_f32_against_cpu(devices=("cuda", "cpu"),
     if rel > 1e-4 or upd > 1e-3:
         raise AssertionError(f"f32 train step card vs CPU: loss rel {rel}, "
                              f"update rel {upd}")
-    log(f"f32 train step ({stem} stem) card vs CPU: loss {lc:.6f} vs "
+    log(f"f32 {'fine-tuning' if pretrained else 'train'} step ({stem} "
+        f"stem) card vs CPU: loss {lc:.6f} vs "
         f"{lp:.6f} (rel {rel:.2e}), grad norm {gc:.6f} vs {gp:.6f}, update "
         f"rel {upd:.2e}")
     return {"loss_rel": rel, "update_rel": upd, "grad_norm": [gc, gp]}
@@ -4638,6 +4683,490 @@ def check_nccl_world1(dev):
     return {"mesh": desc, "checks": checks}
 
 
+# -- phase 20: the CIFAR-10 fine-tuning sweep ---------------------------------
+
+CIFAR_ROWS = (50000, 10000)   # the canonical archive's train and test rows
+IMB_TRAIN_ROWS = 20431        # exp, factor 0.1 of 50,000
+
+
+def simclr_keys():
+    """(torchvision key, port key) of a SimCLR CIFAR ResNet-18 checkpoint
+    (``encoder.*`` as torchvision names it, and the ``linear.*`` head its
+    arg pool skips), written out here rather than from the port's
+    mapping; None where the port has no tensor."""
+    leaves = (("weight", "scale"), ("bias", "bias"),
+              ("running_mean", "mean"), ("running_var", "var"))
+
+    def bn(t, p):
+        return [(f"{t}.{a}", f"{p}.{b}") for a, b in leaves] + [
+            (f"{t}.num_batches_tracked", None)]
+
+    pairs = [("encoder.conv1.weight", "encoder.conv_stem.weight")]
+    pairs += bn("encoder.bn1", "encoder.bn_stem")
+    for i in range(4):
+        for j in range(2):
+            t = f"encoder.layer{i + 1}.{j}"
+            p = f"encoder.stage{i + 1}_block{j}"
+            pairs += [(f"{t}.conv1.weight", f"{p}.Conv_0.weight")]
+            pairs += bn(f"{t}.bn1", f"{p}.BatchNorm_0")
+            pairs += [(f"{t}.conv2.weight", f"{p}.Conv_1.weight")]
+            pairs += bn(f"{t}.bn2", f"{p}.BatchNorm_1")
+            if i > 0 and j == 0:
+                pairs += [(f"{t}.downsample.0.weight",
+                           f"{p}.downsample_conv.weight")]
+                pairs += bn(f"{t}.downsample.1", f"{p}.downsample_bn")
+    return pairs + [("linear.weight", None), ("linear.bias", None)]
+
+
+def write_simclr_checkpoint(path: str, seed: int = SEED) -> dict:
+    """A SimCLR-layout CIFAR ResNet-18 state dict from a numpy seed,
+    saved with ``torch.save``: He-normal convolutions, BatchNorm scales
+    and running variances near 1, biases and running means near 0.
+    Returns {port key: tensor} of what the overlay must load."""
+    from active_learning_tpu_torch.models.factory import get_network
+
+    shapes = {k: tuple(v.shape) for k, v in get_network(
+        "cifar10", "SSLResNet18", device="cpu").state_dict().items()}
+    shapes.update({"linear.weight": (10, 512), "linear.bias": (10,)})
+    rng = np.random.default_rng(seed)
+    state, want = {}, {}
+    for tkey, pkey in simclr_keys():
+        leaf = tkey.rsplit(".", 1)[1]
+        if leaf == "num_batches_tracked":
+            state[tkey] = torch.tensor(1000)
+            continue
+        shape = shapes[pkey or tkey]
+        if len(shape) == 4:
+            v = rng.normal(0, np.sqrt(2.0 / (shape[0] * shape[2]
+                                             * shape[3])), shape)
+        elif len(shape) == 2:
+            v = rng.normal(0, 0.05, shape)
+        elif leaf in ("weight", "running_var"):
+            v = rng.uniform(0.8, 1.2, shape)
+        else:
+            v = rng.normal(0, 0.05, shape)
+        state[tkey] = torch.from_numpy(v.astype(np.float32))
+        if pkey is not None:
+            want[pkey] = state[tkey]
+    torch.save(state, path)
+    return want
+
+
+def _bn_backward_terms(g, x, y, shift):
+    dz = (g if y is None else torch.where(y > 0, g, torch.zeros_like(g))
+          ).float()
+    return dz, dz * (x.float() - shift.view(1, -1, 1, 1))
+
+
+def _param_grads(coeff_fn, d_mul, d_add):
+    """d scale and d bias from the sums, by autograd's chain through
+    ``bn_coefficients`` (what the model runs)."""
+    scale, bias, (_, mul, add) = coeff_fn()
+    return torch.autograd.grad((mul, add), (scale, bias), (d_mul, d_add))
+
+
+def hold_bn_act_backward(g, x, y, params, fused, residual, where, detail,
+                         path):
+    """Kernel B′ against its plain version on one input: dx and
+    d_residual bit for bit; the sums Σdz and Σdz·(x − shift) within
+    1e-5 of the sum of their terms' magnitudes of the plain version's
+    (as kernel C's sums are held) and within ``backward_chain_length``
+    units of 2⁻²⁴ of it of the float64 sum of the same float32 terms;
+    d scale and d bias, through autograd's chain from each side's sums,
+    within that bound carried by the chain's partial derivatives (r·(tol
+    of Σdz·(x − shift) + |mean|·tol of Σdz) and tol of Σdz) plus 3 units
+    of the type the chain rounds the sums to (bf16 in the fused bf16
+    formula, float32 otherwise) of |Σdz·(x − shift)| + |mean·Σdz|.  Two
+    launches bit-equal.  Returns the largest ratio to a bound and the
+    largest absolute difference of the sums (dx and d_residual have
+    none)."""
+    from active_learning_tpu_torch.ops import bn_act as ba
+
+    scale, bias, mean, var = params
+    dtype = x.dtype
+
+    def coeff_fn():
+        s_, b_ = (t.detach().clone().requires_grad_(True)
+                  for t in (scale, bias))
+        return s_, b_, ba.bn_coefficients(s_, b_, mean, var, 1e-5, dtype,
+                                          fused)
+
+    _, _, (shift, mul, _) = coeff_fn()
+    shift, mul = shift.detach(), mul.detach()
+    got = ba.bn_act_backward(g, x, y, shift, mul, residual)
+    again = ba.bn_act_backward(g, x, y, shift, mul, residual)
+    ref = ba.bn_act_backward_reference(g, x, y, shift, mul, residual)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0].view(torch.int16 if dtype == torch.bfloat16
+                                   else torch.int32),
+                       ref[0].view(torch.int16 if dtype == torch.bfloat16
+                                   else torch.int32)):
+        raise AssertionError(f"bn_act_backward dx {where}: not bit-equal")
+    if residual and not torch.equal(got[1], ref[1]):
+        raise AssertionError(f"bn_act_backward d_residual {where}")
+    for a, b in zip(got, again):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"bn_act_backward {where}: two launches "
+                                 "differ")
+    b_, c, h, w = x.shape
+    chain = ba.backward_chain_length(b_ * h * w, c, dtype)
+    worst, tols, max_abs = 0.0, [], 0.0
+    for k, t in zip((3, 2), _bn_backward_terms(g, x, y, shift)):
+        mag = t.abs().sum((0, 2, 3))
+        tol = 1e-5 * mag
+        max_abs = max(max_abs, (got[k] - ref[k]).abs().max().item())
+        ratio = ((got[k] - ref[k]).abs() / (tol + 1e-30)).max().item()
+        truth = ((got[k].double() - t.double().sum((0, 2, 3))).abs()
+                 / (chain * 2.0 ** -24 * mag.double() + 1e-30)).max().item()
+        if ratio > 1.0 or truth > 1.0:
+            raise AssertionError(f"bn_act_backward sums {where}: "
+                                 f"{ratio:.3g} of 1e-5, {truth:.3g} of the "
+                                 f"chain bound ({chain})")
+        worst = max(worst, ratio, truth)
+        tols.append(tol)
+    dsc, dbi = _param_grads(coeff_fn, got[2], got[3])
+    rsc, rbi = _param_grads(coeff_fn, ref[2], ref[3])
+    r = torch.rsqrt(var + 1e-5)
+    m = mean.abs() if fused else 0.0
+    unit = 2.0 ** -8 if fused and dtype == torch.bfloat16 else 2.0 ** -24
+    vals = ref[2].abs() + m * ref[3].abs()
+    b_scale = r * (tols[1] + m * tols[0] + 3 * unit * vals) + 1e-30
+    b_bias = tols[0] + 3 * unit * ref[3].abs() + 1e-30
+    ratio = max(((dsc - rsc).abs() / b_scale).max().item(),
+                ((dbi - rbi).abs() / b_bias).max().item())
+    if ratio > 1.0:
+        raise AssertionError(f"bn_act_backward d scale / d bias {where}: "
+                             f"{ratio:.3g} of the bound")
+    worst = max(worst, ratio)
+    detail.append({"kernel": "bn_act_backward", "path": path,
+                   "shape": list(x.shape), "dtype": str(dtype),
+                   "residual": residual, "relu": y is not None,
+                   "chain_length": chain, "worst_ratio": worst,
+                   "max_abs_err": max_abs})
+    return worst, max_abs
+
+
+def check_bn_act_backward(dev, calls, detail, path="cifar_finetune"):
+    """Kernel B′ at every BatchNorm call (shape, residual, ReLU) of the
+    path's forward, in bf16 (the fused formula, as the model runs it)
+    and f32 (flax's): ``hold_bn_act_backward``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    worst = max_abs = 0.0
+    for shape, has_res, relu in sorted(set(calls)):
+        c = shape[1]
+        params = (torch.rand(c, device=dev, generator=gen) + 0.5,
+                  torch.randn(c, device=dev, generator=gen) * 0.1,
+                  torch.randn(c, device=dev, generator=gen) * 0.1,
+                  torch.rand(c, device=dev, generator=gen) + 0.5)
+        x32 = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+        g32 = torch.randn(shape, device=dev, generator=gen)
+        y32 = torch.relu(torch.randn(shape, device=dev, generator=gen))
+        for dtype, fused in ((torch.bfloat16, True), (torch.float32, False)):
+            x, g, y = (t.to(dtype).contiguous(
+                memory_format=torch.channels_last) for t in (x32, g32, y32))
+            ratio, err = hold_bn_act_backward(
+                g, x, y if relu else None, params, fused, has_res,
+                f"{shape} {dtype} res={has_res} relu={relu}", detail, path)
+            worst, max_abs = max(worst, ratio), max(max_abs, err)
+        del x32, g32, y32
+    torch.cuda.empty_cache()
+    return worst, max_abs
+
+
+def bn_eval_bwd_bytes(shape, has_res, relu, elem=BF16_BYTES):
+    """The bytes kernel B′ must move for one BatchNorm: read g, x and
+    (with a ReLU) y, write dx and (with a residual behind the ReLU) the
+    residual's gradient; read shift and mul, write the two [C] sums."""
+    act = shape[0] * shape[1] * shape[2] * shape[3] * elem
+    return act * (3 + relu + (has_res and relu)) + 4 * shape[1] * 4
+
+
+def time_bn_act_backward(dev, calls, detail):
+    """Over the 20 BatchNorm calls of one bf16 SSLResNet18 fine-tuning
+    step at B = 128 (CIFAR rows), each with its residual and ReLU: kernel
+    B′'s time (CUDA events), its device time (profiler), its host time a
+    call, its plain version, its bytes bound, and the library reference
+    ``aten.native_batch_norm_backward(train=False)`` on the masked
+    gradient (it leaves out the mask and the residual's gradient, and
+    runs PyTorch's own eval formula)."""
+    from active_learning_tpu_torch.ops import bn_act as ba
+
+    per = {}
+    for key in sorted(set(calls)):
+        shape, has_res, relu = key
+        x, g, _ = _kernel_c_inputs(shape, torch.bfloat16, dev, 9)
+        c = shape[1]
+        y = (torch.relu(x.float() - 1.0).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last) if relu else None)
+        scale = torch.rand(c, device=dev) + 0.5
+        rm, rv = torch.randn(c, device=dev) * 0.1, torch.rand(c, device=dev)
+        shift, mul, _ = ba.bn_coefficients(scale, torch.zeros_like(scale),
+                                           rm, rv + 0.5, 1e-5,
+                                           torch.bfloat16, True)
+        gm = g if y is None else torch.where(y > 0, g, torch.zeros_like(g))
+
+        def kernel():
+            ba.bn_act_backward(g, x, y, shift, mul, has_res)
+
+        def plain():
+            ba.bn_act_backward_reference(g, x, y, shift, mul, has_res)
+
+        invstd = torch.rsqrt(rv + 0.5 + 1e-5)
+
+        def library():
+            # The CUDA op asserts saved statistics even in eval mode.
+            torch.ops.aten.native_batch_norm_backward(
+                gm, x, scale, rm, rv + 0.5, rm, invstd, False, 1e-5,
+                [True, True, True])
+
+        nbytes = bn_eval_bwd_bytes(shape, has_res, relu)
+        kernel()
+        torch.cuda.synchronize()
+        # One whole profiler session gives the device time and the
+        # kernels a call.
+        events, _ = _complete_events(kernel, 10)
+        per[key] = {"ms": cuda_ms(kernel, reps=20),
+                    "device_ms": sum(us for _, us in events.values())
+                    / 1e3 / 10,
+                    "kernels_a_call": sum(c for c, _ in events.values())
+                    // 10,
+                    "host_us": host_us(kernel, reps=50),
+                    "plain_ms": cuda_ms(plain, reps=5),
+                    "library_ms": cuda_ms(library, reps=20),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        detail.append({"kernel": "bn_act_backward", "timed_shape":
+                       list(shape), "residual": has_res, "relu": relu,
+                       "calls_per_step": calls.count(key), **per[key]})
+        del x, g, y, gm
+        torch.cuda.empty_cache()
+    tot = {k: sum(per[c][k] for c in calls)
+           for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                     "bound_ms")}
+    host = float(np.mean([per[c]["host_us"] for c in calls]))
+    kernels = max(v["kernels_a_call"] for v in per.values())
+    log(f"kernel B' per B=128 fine-tuning step ({len(calls)} calls): "
+        f"{tot['ms']:.4f} ms (device {tot['device_ms']:.4f} ms by the "
+        f"profiler, host {host:.2f} us a call, {kernels} kernels a call); "
+        f"plain {tot['plain_ms']:.4f}, native_batch_norm_backward "
+        f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}")
+    return {**tot, "bound_by": "bytes", "host_us_a_call": host,
+            "kernels_a_call": kernels}
+
+
+def check_cache_repair(dev, data, runs, n_labeled=1000, epochs=2):
+    """The caches the models keep of their weights (a Conv's
+    compute-dtype weight, a BatchNorm's eval coefficients) must follow
+    kernels D's and C's in-place writes.  For each ``runs`` entry (name
+    -> TrainConfig), ``Trainer.fit`` of a seeded SSLResNet18 for
+    ``epochs`` epochs on ``n_labeled`` rows of ``data`` (a 10-class
+    triple) with validation: a configured checkpoint fine-tunes with
+    BatchNorm in eval mode (D writes the weights), none trains from
+    scratch with BatchNorm in training mode (D, and C the running
+    statistics).  At every validation and after the fit, the cached
+    model's logits on the first validation batch and its
+    ``Trainer.evaluate`` counts must equal those of a model freshly
+    loaded with ``trainer.variables()``.  Returns each run's validation
+    accuracies, cached and fresh."""
+    from active_learning_tpu_torch.data.augment import apply_view
+    from active_learning_tpu_torch.initial_pool import generate_eval_idxs
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.resnet import init_weights
+    from active_learning_tpu_torch.train.trainer import Trainer
+
+    train_set, _, al_set = data
+    targets = train_set.targets[:len(train_set)]
+    eval_idxs = generate_eval_idxs(targets, 10, ratio=0.1, random_seed=99)
+    rest = np.setdiff1d(np.arange(len(train_set)), eval_idxs)
+    labeled = np.random.default_rng(SEED).choice(rest, n_labeled,
+                                                 replace=False)
+    probe = torch.from_numpy(al_set.gather(eval_idxs[:256])).to(dev)
+    out = {}
+    for name, cfg in runs.items():
+        model = get_network("cifar10", "SSLResNet18", device=dev)
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        if cfg.has_pretrained:
+            from active_learning_tpu_torch.utils.pretrained import \
+                apply_pretrained
+            apply_pretrained(model, cfg.pretrained)
+        trainer = Trainer(model, cfg, 10, dev)
+        readings = []
+        cached_eval = trainer.evaluate
+
+        def evaluate(dataset, idxs, trainer=trainer, cfg=cfg, name=name,
+                     cached_eval=cached_eval, readings=readings):
+            got = cached_eval(dataset, idxs)
+            fresh = get_network("cifar10", "SSLResNet18", device=dev)
+            fresh.load_state_dict(trainer.variables())
+            want = Trainer(fresh, cfg, 10, dev).evaluate(dataset, idxs)
+            readings.append((float(got["accuracy"]),
+                             float(want["accuracy"])))
+            with torch.inference_mode():
+                x = apply_view(probe, al_set.view, train=False)
+                same = torch.equal(trainer.model.eval()(x), fresh.eval()(x))
+            trainer.model.train(trainer.train_bn)
+            differ = [k for k in want if not np.array_equal(
+                np.asarray(got[k]), np.asarray(want[k]))]
+            if differ or not same:
+                raise AssertionError(
+                    f"{name} fit, evaluation {len(readings)}: the cached "
+                    f"model's logits equal a freshly loaded model's: "
+                    f"{same}; counts that differ: {differ}; validation "
+                    f"accuracy (cached, fresh) so far: {readings}")
+            return got
+
+        trainer.evaluate = evaluate
+        trainer.fit(train_set, labeled, al_set, eval_idxs, n_epoch=epochs,
+                    es_patience=50, rng=np.random.default_rng(SEED))
+        evaluate(al_set, eval_idxs)
+        out[name] = {"train_bn": trainer.train_bn,
+                     "val_accuracy_cached_fresh": readings}
+    log(f"cache repair: validation accuracy (cached, fresh) by epoch and "
+        f"after the fit: {out}")
+    return out
+
+
+def run_cifar_finetune(root: str, dev, rows=CIFAR_ROWS, cli_extra=()):
+    """Phase 20: the first imbalanced-CIFAR BASESampler job of the port's
+    ``gen_jobs`` through ``python -m active_learning_tpu_torch`` on the
+    card, cut to 2 epochs and 2 rounds, on a full-size facsimile archive
+    (50,000 + 10,000 rows, fetched through ``fetch_cifar10`` with its md5)
+    and a seeded SimCLR-layout checkpoint under ``--pretrained_root``."""
+    from active_learning_tpu_torch.data import get_data
+    from active_learning_tpu_torch.data.cifar10 import fetch_cifar10
+    from active_learning_tpu_torch.data.facsimile import \
+        write_cifar10_facsimile
+    from active_learning_tpu_torch.experiment import gen_jobs
+    from active_learning_tpu_torch.experiment.arg_pools import \
+        get_train_config
+    from active_learning_tpu_torch.experiment.cli import parse
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.resnet import init_weights
+    from active_learning_tpu_torch.utils.pretrained import apply_pretrained
+
+    res = {}
+    t0 = time.perf_counter()
+    path, md5 = write_cifar10_facsimile(
+        os.path.join(root, "arch", "cifar-10-python.tar.gz"),
+        n_train=rows[0], n_test=rows[1], seed=SEED)
+    res["facsimile_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data_dir = os.path.join(root, "data")
+    fetch_cifar10(data_dir, url=f"file://{path}", expected_md5=md5)
+    res["fetch_s"] = time.perf_counter() - t0
+    pre = os.path.join(root, "pre")
+    ckpt = os.path.join(pre, "pretrained_ckpt", "cifar10",
+                        "simclr_imb_pretrain0_1.tar")
+    os.makedirs(os.path.dirname(ckpt))
+    want = write_simclr_checkpoint(ckpt)
+
+    job = next(a for a in gen_jobs.cifar10_args(data_dir, imbalanced=True)
+               if a["strategy"] == "BASESampler")
+    job = dict(job, n_epoch=2, rounds=2)
+    argv = gen_jobs.run_argv(job) + [
+        "--pretrained_root", pre, "--exp_hash", "cifar",
+        "--log_dir", os.path.join(root, "logs"),
+        "--ckpt_path", os.path.join(root, "ckpt"), *cli_extra]
+    cfg = parse(argv)
+    res["command"] = " ".join([gen_jobs.CLI] + argv)
+    data = get_data(cfg.dataset, data_path=data_dir,
+                    imbalance_args=cfg.imbalance)
+    n_pool = len(data[0])
+    if rows == CIFAR_ROWS and n_pool != IMB_TRAIN_ROWS:
+        raise AssertionError(f"the imbalanced train set has {n_pool} rows")
+
+    # The loaded encoder equals the checkpoint.
+    train_cfg = get_train_config(cfg.arg_pool, cfg.dataset,
+                                 cfg.pretrained_root)
+    model = get_network(cfg.dataset, cfg.model, device=dev)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    head = model.linear.weight.detach().clone()
+    loaded = apply_pretrained(model, train_cfg.pretrained)
+    state = model.state_dict()
+    bad = [k for k, v in want.items() if not torch.equal(state[k].cpu(), v)]
+    if bad or loaded != len(want) or not torch.equal(model.linear.weight,
+                                                     head):
+        raise AssertionError(f"overlay: {loaded} of {len(want)} loaded, "
+                             f"differing {bad[:5]}")
+    res["overlaid"] = loaded
+
+    # Kernel B' at every BatchNorm call of the B=128 forward.
+    calls = bn_calls_of_forward(model, torch.zeros(128, 32, 32, 3,
+                                                   device=dev))
+    detail = []
+    res["bn_bwd_worst_ratio"], res["bn_bwd_max_abs_err"] = \
+        check_bn_act_backward(dev, calls, detail)
+    res["bn_bwd_checks"] = len(detail)
+    res["bn_bwd_times"] = time_bn_act_backward(dev, calls, detail)
+    res["calls"] = calls
+    del model
+    torch.cuda.empty_cache()
+
+    # The job through the CLI, in its own process (its launch counts
+    # start at 0 there and are logged when it finishes).
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "active_learning_tpu_torch",
+                          *argv], cwd=os.path.dirname(
+                              os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=900)
+    res["cli_wall_s"] = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"CIFAR CLI exited {run.returncode}:\n"
+                             f"{run.stderr[-4000:]}")
+    err = run.stderr
+    line = [ln for ln in err.splitlines() if "Kernel launches: " in ln][-1]
+    launches = json.loads(line.split("Kernel launches: ", 1)[1])
+    res["launches"] = launches
+    for k in ("bn_act", "bn_act_bwd", "fused_sgd", "boundary_radii"):
+        if launches[k] < 1:
+            raise AssertionError(f"CIFAR path never launched {k}: "
+                                 f"{launches}")
+    c_names = ("bn_train_stats", "bn_train_bwd_reduce", "bn_train_chain",
+               "bn_train_dx")
+    if any(launches[k] for k in c_names):
+        raise AssertionError(f"kernel C ran with BatchNorm in eval mode: "
+                             f"{launches}")
+    if err.count(f"Overlaid {len(want)} pretrained tensors") != 2:
+        raise AssertionError("the checkpoint was not overlaid each round")
+    exp_dir = os.path.join(root, "ckpt", f"{cfg.exp_name}_cifar")
+    with np.load(os.path.join(exp_dir, "experiment_state.npz")) as st:
+        if int(st["n_pool"]) != n_pool:
+            raise AssertionError(f"pool of {int(st['n_pool'])} rows")
+        res["labeled"] = int(st["labeled"].sum())
+        want_labeled = min(2 * job["round_budget"],
+                           n_pool - len(st["eval_idxs"]))
+    tested, vals = {}, {}
+    with open(os.path.join(root, "logs", "metrics.jsonl")) as fh:
+        for ln in fh:
+            e = json.loads(ln)
+            if e["kind"] != "metric":
+                continue
+            for k, v in e["metrics"].items():
+                if k == "rd_test_accuracy":
+                    tested[e["step"]] = v
+                elif k.endswith("_validation_accuracy"):
+                    vals.setdefault(k, []).append(v)
+    if set(tested) != {0, 1} or res["labeled"] != want_labeled or any(
+            len(v) != 2 for v in vals.values()) or len(vals) != 2:
+        raise AssertionError(f"rounds tested {tested}, validation {vals}, "
+                             f"labeled {res['labeled']}")
+    if not all(np.isfinite(v) for v in tested.values()):
+        raise AssertionError(f"test accuracy {tested}")
+    res["test_accuracy"] = tested
+    res["validation_accuracy"] = vals
+    res["phase_times"] = [ln for ln in err.splitlines() if "_time is " in ln]
+    log(f"CIFAR fine-tuning CLI on the card: {res['cli_wall_s']:.1f} s, "
+        f"launches {launches}; test accuracy {tested}; phases "
+        f"{res['phase_times']}")
+
+    # The first fine-tuning step, card against CPU in float32.
+    res["f32_step"] = check_train_step_f32_against_cpu(pretrained=ckpt)
+    # The caches follow kernels D and C's writes.
+    res["cache_repair"] = check_cache_repair(dev, data, {
+        "finetune": train_cfg,
+        "scratch": get_train_config("default", cfg.dataset)})
+    return res, detail
+
+
 def _unmeasured(entry: dict, where: str = "") -> list:
     """The time readings of a kernels-line entry that came back None (a
     profiler reading whose every session lost events), by key path; a
@@ -4818,6 +5347,12 @@ def main() -> int:
     # 19. One NCCL rank on the card.
     nccl = check_nccl_world1(dev)
 
+    # 20. The CIFAR-10 fine-tuning sweep: kernel B' held and timed, the
+    # imbalanced CIFAR job through the CLI, the cache repair.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cifar_") as tmp:
+        cifar, cifar_detail = run_cifar_finetune(tmp, dev)
+    detail.extend(cifar_detail)
+
     def total(runs):
         keys = next(iter(runs)).keys()
         return {k: sum(r[k] for r in runs) for k in keys}
@@ -4833,7 +5368,8 @@ def main() -> int:
              "cli_samplers": cli_smp_launches,
              "s2d_experiment": s2d["experiment"]["launches"],
              "s2d_serve": s2d["serve"]["launches"],
-             "dp_experiment": dp["launches"]}
+             "dp_experiment": dp["launches"],
+             "cifar_finetune": cifar["launches"]}
 
     def count(*names):
         by = {p: sum(v[n] for n in names) for p, v in paths.items()}
@@ -4857,6 +5393,11 @@ def main() -> int:
          "replaces": "active_learning_tpu/models/resnet.py:190",
          **count("bn_act"), "max_abs_err": err_b,
          **times_b, "library_ms": None},
+        {"name": "bn_act_backward", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/bn_eval_bwd.cu",
+         "replaces": "active_learning_tpu/models/resnet.py:150",
+         **count("bn_act_bwd"), "max_abs_err": cifar["bn_bwd_max_abs_err"],
+         **cifar["bn_bwd_times"]},
         {"name": "bn_train", "route": "cuda",
          "source": "active_learning_tpu_torch/csrc/bn_train.cu",
          "replaces": "active_learning_tpu/ops/backward.py:131",
@@ -4930,6 +5471,7 @@ def main() -> int:
                        "samplers": {"balancing": balancing, "vaal": vaal,
                                     "cli": cli_smp},
                        "s2d": s2d, "dp": dp, "nccl": nccl,
+                       "cifar_finetune": cifar,
                        "checks": detail}, fh, indent=1, default=str)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

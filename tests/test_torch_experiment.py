@@ -51,6 +51,7 @@ from active_learning_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_parity import TorchBasicBlock, TorchSSLNet  # noqa: E402
 from test_torch_train import _tiny_pair  # noqa: E402
 
 CLI_FLAGS = ["--dataset", "synthetic", "--arg_pool", "synthetic",
@@ -147,8 +148,8 @@ def test_without_a_card_the_cli_raises(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--resume_training"], ["--round_pipeline", "speculative"],
-    ["--dataset", "cifar10"], ["--imbalance_type", "exp"],
-    ["--arg_pool", "ssp_finetuning"], ["--pool_sharding", "row"]])
+    ["--dataset", "imagenet"], ["--feed_workers", "4"],
+    ["--fault_spec", "kill@1"], ["--pool_sharding", "row"]])
 def test_flags_not_ported_exit_2_naming_the_roadmap(flags, capsys):
     # argparse keeps the last value of a repeated flag.
     assert port_main.main(CLI_FLAGS + ["--device", "cpu"] + flags) == 2
@@ -186,17 +187,56 @@ def test_cli_stem_s2d_runs_and_echoes_on_cpu(tmp_path):
     assert model.stem == "default" and model.cifar_stem
 
 
-def test_bn_eval_training_into_the_encoder_raises():
-    """Pretrained fine-tuning (eval-mode BN, gradients into the encoder)
-    is not ported: the trainer refuses it, and so does the model."""
+def test_bn_eval_training_into_the_encoder_raises(tmp_path):
+    """Pretrained fine-tuning is ported, so nothing raises: a configured
+    checkpoint loads (the encoder becomes the checkpoint's, the head
+    keeps its init) and one fine-tuning step (BN in eval mode,
+    gradients into the encoder) runs through kernel B′'s plain version
+    and moves the encoder's parameters but not its running
+    statistics."""
+    from active_learning_tpu_torch.utils.pretrained import apply_pretrained
+
     model = resnet.SSLClassifier((1, 1), resnet.BasicBlock, 4,
                                  cifar_stem=True)
-    cfg = TrainConfig(pretrained=PretrainedConfig(path="moco.pth"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(model, cfg, 4, "cpu")
-    model.eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(torch.zeros(2, 8, 8, 3))
+    model = model.to(memory_format=torch.channels_last)
+    # A SimCLR-layout checkpoint (torchvision names, encoder.* and a
+    # linear.* to skip) with seeded weights and running statistics.
+    gen = torch.Generator().manual_seed(3)
+    ckpt = {k: (torch.rand(v.shape, generator=gen) + 0.5
+                if k.endswith("running_var") else
+                torch.rand(v.shape, generator=gen) - 0.5)
+            if v.is_floating_point() else v
+            for k, v in TorchSSLNet(TorchBasicBlock, [1, 1],
+                                    num_classes=4).state_dict().items()}
+    path = str(tmp_path / "simclr.pth.tar")
+    torch.save(ckpt, path)
+    cfg = TrainConfig(pretrained=PretrainedConfig(
+        path=path, required_key=("encoder",), skip_key=("linear",)))
+    head = model.linear.weight.detach().clone()
+    counters = sum(k.endswith("num_batches_tracked") for k in ckpt)
+    assert apply_pretrained(model, cfg.pretrained) == len(ckpt) - 2 - counters
+    assert torch.equal(model.encoder.conv_stem.weight, ckpt[
+        "encoder.conv1.weight"])
+    assert torch.equal(model.linear.weight, head)
+
+    trainer = Trainer(model, cfg, 4, "cpu")
+    assert not trainer.train_bn
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    model.train(trainer.train_bn)
+    rng = np.random.default_rng(0)
+    batch = trainer.to_device({
+        "image": rng.integers(0, 256, (8, 8, 8, 3), dtype=np.uint8),
+        "label": rng.integers(0, 4, 8).astype(np.int32),
+        "mask": np.ones(8, np.float32)})
+    from active_learning_tpu_torch.data.core import SYNTH_NORM, ViewSpec
+    loss, gnorm = trainer.train_step(batch, 0.1, torch.ones(4),
+                                     ViewSpec(SYNTH_NORM), None)
+    assert np.isfinite(float(loss)) and float(gnorm) > 0
+    for k, v in model.named_parameters():
+        assert not torch.equal(v, params[k]), k
+    for k, v in model.named_buffers():
+        assert torch.equal(v, stats[k]), k
 
 
 def test_cli_parses_the_jax_flag_names():

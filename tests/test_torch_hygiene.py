@@ -5,8 +5,8 @@ scikit-learn (the card's machine has none) or the JAX package.
 Two checks: every port module imports in a fresh interpreter where those
 names are blocked in ``sys.modules``; and an AST scan of every import
 statement in the package and in ``chip_smoke.py``.  The modules of the
-training, acquisition, last-samplers, s2d and data-parallel slices are
-also named one by one.
+training, acquisition, last-samplers, s2d, data-parallel and CIFAR
+fine-tuning slices are also named one by one.
 """
 
 from __future__ import annotations
@@ -111,9 +111,15 @@ S2D_SLICE = ("ops/stem_conv",)
 # Data parallelism: the mesh and kernel J's wrapper.
 PARALLEL_SLICE = ("parallel/__init__", "parallel/mesh", "ops/int8_sync")
 
+# The CIFAR-10 fine-tuning sweep: the data, the checkpoint ingestion, the
+# job lists (kernel B′ is in ops/bn_act).
+CIFAR_SLICE = ("data/facsimile", "data/cifar10", "data/imbalance",
+               "utils/pretrained", "experiment/gen_jobs", "ops/bn_act")
+
 
 @pytest.mark.parametrize("module", TRAINING_SLICE + ACQUISITION_SLICE
-                         + SAMPLERS_SLICE + S2D_SLICE + PARALLEL_SLICE)
+                         + SAMPLERS_SLICE + S2D_SLICE + PARALLEL_SLICE
+                         + CIFAR_SLICE)
 def test_training_slice_module_is_checked(module):
     path = os.path.join(PKG, *module.split("/")) + ".py"
     assert path in _port_files()

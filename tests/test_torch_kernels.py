@@ -495,6 +495,185 @@ def test_training_wrappers_raise_rather_than_fall_back(cuda_device):
         fs.fused_sgd_update([p], [p.double()], [p.clone()], 0.1, 0.9, 0.0)
 
 
+def test_kernel_writes_mark_the_tensors_they_update(cuda_device):
+    """Kernels D and C write a caller's tensors through raw pointers; the
+    wrappers bump those tensors' version counters, so the models' caches
+    keyed on ``_version`` (a Conv's compute-dtype weight, a BatchNorm's
+    eval coefficients) serve the written values under inference_mode,
+    not the ones cached before the write."""
+    from active_learning_tpu_torch.models import resnet
+
+    torch.manual_seed(0)
+    conv = resnet.Conv(16, 32, 3, 1, 1, torch.bfloat16).to(cuda_device)
+    bn = resnet.BatchNorm(32, torch.bfloat16, True).to(cuda_device)
+    with torch.no_grad():
+        bn.mean.normal_()
+        bn.var.uniform_(0.5, 1.5)
+    with torch.inference_mode():
+        conv.compute_weight()
+        bn.coefficients()
+    params = [conv.weight, bn.scale, bn.bias]
+    traces = [torch.randn_like(p) for p in params]
+    written = params + traces + [bn.mean, bn.var]
+    versions = [t._version for t in written]
+    fs.fused_sgd_update(params, [torch.randn_like(p) for p in params],
+                        traces, 0.1, 0.9, 1e-4)
+    x = _cl(torch.randn(4, 32, 5, 5, device=cuda_device).to(torch.bfloat16))
+    bt.bn_forward_stats(x, bn.scale.detach(), bn.bias.detach(), 1e-5, True,
+                        (bn.mean, bn.var))
+    torch.cuda.synchronize()
+    assert all(t._version > v for t, v in zip(written, versions))
+    with torch.inference_mode():
+        w, coeffs = conv.compute_weight(), bn.coefficients()
+    assert torch.equal(w, conv.weight.detach().to(
+        torch.bfloat16, memory_format=torch.channels_last))
+    fresh = ba.bn_coefficients(bn.scale.detach(), bn.bias.detach(), bn.mean,
+                               bn.var, bn.eps, bn.dtype, bn.fused_stats)
+    for a, b in zip(coeffs, fresh):
+        assert torch.equal(a, b)
+
+
+# -- kernel B′: the eval-mode BatchNorm backward ------------------------------
+
+def hold_bn_act_backward(g, x, y, shift, mul, residual):
+    """Kernel B′ against its plain version on one input (returns the
+    sums' largest error over their bound).  dx and d_residual: bit for
+    bit.  The sums Σdz and Σdz·(x − shift): within 1e-5 of the sum of
+    their terms' magnitudes of the plain version's (float32 sums in
+    another order, as kernel C's are held), and within
+    ``backward_chain_length``·2⁻²⁴ of it of the float64 sum of the same
+    float32 terms.  Two launches: bit-equal."""
+    before = ba.bwd_launches
+    got = ba.bn_act_backward(g, x, y, shift, mul, residual)
+    again = ba.bn_act_backward(g, x, y, shift, mul, residual)
+    ref = ba.bn_act_backward_reference(g, x, y, shift, mul, residual)
+    torch.cuda.synchronize()
+    assert ba.bwd_launches == before + 2
+    assert torch.equal(_bits(got[0]), _bits(ref[0]))
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    if residual:
+        assert torch.equal(_bits(got[1]), _bits(ref[1]))
+    else:
+        assert got[1] is None
+    for a, b in zip(got, again):
+        assert a is None or torch.equal(a, b)
+    dz = (g if y is None else torch.where(y > 0, g, torch.zeros_like(g))
+          ).float()
+    terms = (dz, dz * (x.float() - shift.view(1, -1, 1, 1)))
+    b, c, h, w = x.shape
+    chain = ba.backward_chain_length(b * h * w, c, x.dtype)
+    worst = 0.0
+    for k, t in zip((3, 2), terms):
+        mag = t.abs().sum((0, 2, 3))
+        truth = t.double().sum((0, 2, 3))
+        ratio = ((got[k] - ref[k]).abs() / (1e-5 * mag + 1e-30)).max().item()
+        assert ratio <= 1.0, ratio
+        assert bool(((got[k].double() - truth).abs()
+                     <= chain * 2.0 ** -24 * mag.double() + 1e-30).all())
+        worst = max(worst, ratio)
+    return worst
+
+
+def _bwd_inputs(dev, shape, dtype, seed):
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    x = _cl((torch.randn(shape, device=dev, generator=g_) * 2 + 1).to(dtype))
+    g = _cl(torch.randn(shape, device=dev, generator=g_).to(dtype))
+    y = _cl(torch.relu(torch.randn(shape, device=dev, generator=g_))
+            .to(dtype))
+    c = shape[1]
+    shift = torch.randn(c, device=dev, generator=g_)
+    mul = torch.rand(c, device=dev, generator=g_) + 0.5
+    return g, x, y, shift, mul
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(4, 96, 7, 9), (128, 64, 32, 32),
+                                   (128, 512, 4, 4), (3, 33, 5, 5)])
+def test_bn_act_backward_kernel_matches_plain(cuda_device, dtype, shape):
+    """Kernel B′ with the ReLU mask and a residual, with the mask alone
+    and with neither; (128, 64, 32, 32) and (128, 512, 4, 4) are
+    SSLResNet18's first and last BatchNorm shapes at B = 128 on 32-px
+    rows, (3, 33, 5, 5) takes the one-channel access."""
+    g, x, y, shift, mul = _bwd_inputs(cuda_device, shape, dtype, sum(shape))
+    hold_bn_act_backward(g, x, y, shift, mul, True)
+    hold_bn_act_backward(g, x, y, shift, mul, False)
+    hold_bn_act_backward(g, x, None, shift, mul, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_act_backward_unaligned_and_special_values(cuda_device, dtype):
+    """A channels-last view one element past a 16-byte boundary (the
+    scalar path) and a cotangent holding NaN, ±inf and ±0 where the mask
+    passes and where it does not: bit for bit with the plain version
+    (a NaN cotangent masked by y ≤ 0 gives 0; a NaN or inf passed
+    through reaches dx and the sums as in the plain version)."""
+    shape = (2, 64, 3, 5)
+    g, x, y, shift, mul = _bwd_inputs(cuda_device, shape, dtype, 5)
+    g = g.clone()
+    g[0, :4, 0, 0] = torch.tensor([float("nan"), float("inf"), -0.0,
+                                   -float("inf")], dtype=dtype)
+    y = y.clone()
+    y[0, 1, 0, 0] = 0
+    numel = g.numel()
+    base = torch.empty(numel + 1, device=cuda_device, dtype=dtype)
+    base[1:].copy_(g.permute(0, 2, 3, 1).reshape(-1))
+    g_off = base[1:].view(2, 3, 5, 64).permute(0, 3, 1, 2)
+    for gg in (g, g_off):
+        got = ba.bn_act_backward(gg, x, y, shift, mul, True)
+        ref = ba.bn_act_backward_reference(gg, x, y, shift, mul, True)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(_bits(a), _bits(b)) if a.ndim == 4 else \
+                torch.equal(a.isnan(), b.isnan())
+
+
+def test_bn_eval_function_on_the_card(cuda_device):
+    """The model's eval-mode BatchNorm with gradients recorded (kernel B
+    forward, kernel B′ backward, the coefficients in the graph) on the
+    card against the same module on the CPU (float32, both formulas,
+    residual and ReLU): the forward, dx and d_residual within 1e-6 of
+    the largest (kernels B and B′ equal their plain versions; the
+    coefficients' rsqrt on the card may differ from the CPU's by an
+    ulp), d scale and d bias within 1e-4 of the largest (float32 sums in
+    another order)."""
+    from active_learning_tpu_torch.models import resnet
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 32, 6, 6, generator=g) * 2 + 1
+    r = torch.randn(x.shape, generator=g)
+    cot = torch.randn(x.shape, generator=g)
+    stats = [torch.rand(32, generator=g) + 0.5, torch.randn(32, generator=g),
+             torch.randn(32, generator=g), torch.rand(32, generator=g) + 0.5]
+    for fused in (True, False):
+        out = []
+        for dev in ("cpu", cuda_device):
+            bn = resnet.BatchNorm(32, torch.float32, fused).to(dev).eval()
+            with torch.no_grad():
+                for t, v in zip((bn.scale, bn.bias, bn.mean, bn.var), stats):
+                    t.copy_(v)
+            xs = _cl(x.to(dev)).requires_grad_(True)
+            rs = _cl(r.to(dev)).requires_grad_(True)
+            before = ba.bwd_launches
+            y = bn(xs, residual=rs, relu=True)
+            (y * _cl(cot.to(dev))).sum().backward()
+            assert ba.bwd_launches == before + (dev != "cpu")
+            out.append([t.detach().cpu() for t in (
+                y, xs.grad, rs.grad, bn.scale.grad, bn.bias.grad)])
+        for a, b, tol in zip(out[0], out[1], (1e-6, 1e-6, 1e-6, 1e-4,
+                                              1e-4)):
+            assert bool(((a - b).abs() <= tol * b.abs().max()).all())
+
+
+def test_bn_act_backward_wrapper_raises_rather_than_falls_back(cuda_device):
+    x = torch.zeros(2, 8, 3, 3, device=cuda_device)  # NCHW-contiguous
+    c = torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError, match="channels_last"):
+        ba.bn_act_backward(_cl(x), x, None, c, c, False)
+    with pytest.raises(TypeError):
+        ba.bn_act_backward(_cl(x.double()), _cl(x.double()), None, c, c,
+                           False)
+
+
 # -- kernel E: k-center fold, top-q, D² draw ---------------------------------
 
 def _kc_pool(dev, n, dims, seed, n_labeled=64):

@@ -115,16 +115,26 @@ def test_every_bn_runs_through_bn_act_with_its_coefficients(pair):
 
 
 def test_training_mode_raises():
-    """Training mode runs now (kernel C, tests/test_torch_train.py); what
-    still raises is training through an eval-mode BatchNorm (pretrained
-    fine-tuning), which has no backward yet (ROADMAP.md)."""
+    """Nothing raises any more: training mode runs (kernel C,
+    tests/test_torch_train.py), and so does training through an
+    eval-mode BatchNorm (pretrained fine-tuning, kernel B′'s plain
+    version here): every parameter gets a finite gradient, and the
+    running statistics stay as they were."""
     model = get_network("cifar10", "SSLResNet18", device="cpu",
                         num_filters=4)
     model.train()
     assert model(torch.zeros(2, 8, 8, 3)).shape == (2, 10)
     model.eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(torch.zeros(1, 8, 8, 3))
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(3, 8, 8, 3)).astype(np.float32))
+    model(x).square().sum().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), \
+            name
+    assert float(model.encoder.bn_stem.scale.grad.abs().sum()) > 0
+    for k, v in model.named_buffers():
+        assert torch.equal(v, stats[k]), k
 
 
 def test_factory_resolution_follows_the_jax_package():

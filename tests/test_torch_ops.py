@@ -170,9 +170,10 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 
 def test_build_names_every_source_with_its_hash():
-    assert _build.sources() == ["badge", "balancing", "bn_act", "bn_train",
-                                "boundary_radii", "fused_sgd", "int8_sync",
-                                "kcenter", "prob_stats", "stem_dw"]
+    assert _build.sources() == ["badge", "balancing", "bn_act",
+                                "bn_eval_bwd", "bn_train", "boundary_radii",
+                                "fused_sgd", "int8_sync", "kcenter",
+                                "prob_stats", "stem_dw"]
     path = _build.library_path("prob_stats")
     assert path.startswith(_build.BUILD_DIR)
     assert path == _build.library_path("prob_stats")

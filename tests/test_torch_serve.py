@@ -334,10 +334,17 @@ def test_device_resolution_never_falls_back():
         resolve_device("mps")
 
 
-def test_unknown_verb_exits_2(capsys):
-    assert port_main.main([]) == 2
+def test_unknown_verb_exits_2(capsys, tmp_path):
     assert port_main.main(["train"]) == 2
     assert "not ported" in capsys.readouterr().err
+    # No verb is the experiment command.  Its default dataset, cifar10,
+    # is ported, so the flags parse and the run reaches the data layer:
+    # no batches under the directory, and no --download_data.
+    with pytest.raises(FileNotFoundError, match="download"):
+        port_main.main(["--device", "cpu", "--dataset_dir",
+                        str(tmp_path / "data"), "--log_dir",
+                        str(tmp_path / "logs"), "--ckpt_path",
+                        str(tmp_path / "ckpt")])
 
 
 def test_cli_serves_and_drains_on_sigterm(experiment, tmp_path):

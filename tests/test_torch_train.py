@@ -32,6 +32,8 @@ from flax import linen as nn
 from active_learning_tpu import initial_pool as jax_initial_pool
 from active_learning_tpu.config import LoaderConfig as JaxLoaderConfig
 from active_learning_tpu.config import OptimizerConfig as JaxOptimizerConfig
+from active_learning_tpu.config import \
+    PretrainedConfig as JaxPretrainedConfig
 from active_learning_tpu.config import SchedulerConfig as JaxSchedulerConfig
 from active_learning_tpu.config import TrainConfig as JaxTrainConfig
 from active_learning_tpu.data import augment as jax_augment
@@ -48,6 +50,7 @@ from active_learning_tpu.train import trainer as jax_trainer
 
 from active_learning_tpu_torch import initial_pool
 from active_learning_tpu_torch.config import (LoaderConfig, OptimizerConfig,
+                                              PretrainedConfig,
                                               SchedulerConfig, TrainConfig)
 from active_learning_tpu_torch.data import augment, pipeline
 from active_learning_tpu_torch.data.core import SYNTH_NORM, ViewSpec
@@ -729,18 +732,23 @@ def _train_cfgs():
     return port, ref
 
 
-@pytest.mark.parametrize("fused_stats,freeze,stem", [
-    pytest.param(True, False, None, id="True-False"),
-    pytest.param(False, False, None, id="False-False"),
-    pytest.param(True, True, None, id="True-True"),
-    pytest.param(True, False, "default", id="default-True-False"),
-    pytest.param(True, False, "s2d", id="s2d-True-False"),
-    pytest.param(False, False, "s2d", id="s2d-False-False")])
-def test_one_train_step_matches_jax(fused_stats, freeze, stem):
+@pytest.mark.parametrize("fused_stats,freeze,stem,pretrained", [
+    pytest.param(True, False, None, False, id="True-False"),
+    pytest.param(False, False, None, False, id="False-False"),
+    pytest.param(True, True, None, False, id="True-True"),
+    pytest.param(True, False, "default", False, id="default-True-False"),
+    pytest.param(True, False, "s2d", False, id="s2d-True-False"),
+    pytest.param(False, False, "s2d", False, id="s2d-False-False"),
+    pytest.param(True, False, None, True, id="finetune-True-False"),
+    pytest.param(False, False, None, True, id="finetune-False-False")])
+def test_one_train_step_matches_jax(fused_stats, freeze, stem, pretrained):
     """One f32 train step (non-augmenting view, B=8 with 2 padding rows)
     from carried weights, batch statistics and momentum; with
     ``freeze_feature`` BN runs in eval mode and the encoder gets a zero
-    gradient (weight decay and momentum still move it).  The CIFAR stem,
+    gradient (weight decay and momentum still move it); with a
+    ``pretrained`` checkpoint configured (``train_bn=False, freeze=False``:
+    pretrained fine-tuning) BN runs in eval mode and the encoder trains
+    through it (kernel B′'s plain version), in both formulas.  The CIFAR stem,
     or the ImageNet stem (``stem``): the default 7x7/s2 conv, or the s2d
     stem fed space-to-depth rows by both packages, whose weight gradient
     is the JAX package's custom VJP and kernel I's plain version.
@@ -756,6 +764,13 @@ def test_one_train_step_matches_jax(fused_stats, freeze, stem):
     jmodel, variables, model = _tiny_pair(fused_stats, freeze=freeze,
                                           stem=stem)
     port_cfg, jax_cfg = _train_cfgs()
+    if pretrained:
+        # Only whether a path is configured matters to the trainers: the
+        # strategies load the file, and here the weights are carried.
+        port_cfg = dataclasses.replace(
+            port_cfg, pretrained=PretrainedConfig(path="simclr.pth.tar"))
+        jax_cfg = dataclasses.replace(
+            jax_cfg, pretrained=JaxPretrainedConfig(path="simclr.pth.tar"))
     rng = np.random.default_rng(7)
     trace = jax.tree.map(
         lambda v: (rng.normal(size=v.shape) * 0.01).astype(np.float32),
@@ -768,7 +783,7 @@ def test_one_train_step_matches_jax(fused_stats, freeze, stem):
     view = JaxViewSpec(JAX_SYNTH_NORM, augment=False)
 
     jt = JaxTrainer(jmodel, jax_cfg, mesh_lib.make_mesh(1), 4)
-    assert jt.train_bn == (not freeze)
+    assert jt.train_bn == (not (freeze or pretrained))
     st = jt.init_state(jax.random.PRNGKey(0), images[:1])
     st = st.replace(params=jax.tree.map(jnp.asarray, variables["params"]),
                     batch_stats=jax.tree.map(jnp.asarray,
@@ -784,7 +799,7 @@ def test_one_train_step_matches_jax(fused_stats, freeze, stem):
     ref_trace = jax.tree.map(np.asarray, st.opt_state)
 
     tr = trainer.Trainer(model, port_cfg, 4, "cpu")
-    assert tr.train_bn == (not freeze)
+    assert tr.train_bn == (not (freeze or pretrained))
     for t, (k, v) in zip(tr.optimizer.trace, model.named_parameters()):
         t.copy_(weights.from_flax_trace({"trace": trace})[k])
     model.train(tr.train_bn)
