@@ -7,8 +7,10 @@ keeps the CLI-facing fields of the training slice.  Fields of the JAX
 package that steer paths the port does not carry yet (device-resident
 feeds, the disk tier, multi-host, profiling, fault injection) are left
 out rather than carried as dead knobs.  The mesh fields (``num_devices``,
-``grad_allreduce``, ``scale_batch`` and the multi-host rendezvous) keep
-the JAX package's names and defaults.
+``grad_allreduce``, ``scale_batch`` and the multi-host rendezvous) and
+the recovery fields (``resume_training``, ``fault_spec``,
+``TrainConfig.current_ckpt_every``) keep the JAX package's names and
+defaults.
 """
 
 from __future__ import annotations
@@ -134,6 +136,10 @@ class TrainConfig:
     # (Trainer.eval_batch_size).  Scores are per-example statistics under
     # eval-mode BN, so this changes throughput only.
     score_batch_size: Optional[int] = None
+    # Epoch cadence of the current-weights checkpoint and of the
+    # mid-round fit state (``Trainer.fit``); a preemption also saves the
+    # fit state at the epoch it lands in.
+    current_ckpt_every: int = 25
 
     @property
     def has_pretrained(self) -> bool:
@@ -194,6 +200,9 @@ class ExperimentConfig:
     init_pool_type: str = "random"  # "random" | "random_balance"
 
     model: str = "SSLResNet18"
+    # Continue the saved experiment of exp_name/exp_hash under
+    # ckpt_path (round state, then a mid-round fit state).
+    resume_training: bool = False
     n_epoch: int = 60
     early_stop_patience: int = 30
 
@@ -245,6 +254,11 @@ class ExperimentConfig:
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
+
+    # Fault injection (``faults/registry.py``): "site:action[@arg]",
+    # comma-separated; None defers to $AL_FAULT_SPEC; unset leaves every
+    # site a no-op.
+    fault_spec: Optional[str] = None
 
     def resolved_init_pool_size(self) -> int:
         if self.init_pool_size == -1:

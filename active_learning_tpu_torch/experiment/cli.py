@@ -24,11 +24,18 @@ and ``--pretrained_root``, onto which an arg pool's relative checkpoint
 path (``ssp_finetuning``, ``ssp_finetuning_imbalanced_cifar10_imb_*``)
 is rebased.
 
-A flag of the JAX CLI that the port does not carry yet
-(``--resume_training``, the resident/stream/fleet knobs,
-``--pool_sharding``, ...) and a dataset or strategy not ported yet exit
-with status 2 and a message naming ROADMAP.md; nothing is silently
-ignored.
+``--resume_training`` continues the saved experiment of ``--exp_name``
+/ ``--exp_hash`` under ``--ckpt_path`` (and a run preempted in round 0,
+which the round journal in ``--log_dir`` records);
+``--fault_spec site:action[@arg]`` arms the fault-injection registry
+(``faults/registry.py``; default ``$AL_FAULT_SPEC``), and a malformed
+spec exits 2.  A preempted run (SIGTERM or SIGINT) checkpoints at the
+next epoch or phase boundary and exits 0.
+
+A flag of the JAX CLI that the port does not carry yet (the
+resident/stream/fleet knobs, ``--pool_sharding``, ...) and a dataset or
+strategy not ported yet exit with status 2 and a message naming
+ROADMAP.md; nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -44,13 +51,12 @@ UNSUPPORTED_FLAGS = {
     "--project_name": True, "--disable_metrics": False,
     "--metrics_backend": True,
     "--metrics_rotate_bytes": True,
-    "--resume_training": False,
     "--profile_dir": True, "--profile_rounds": True,
     "--disable_telemetry": False, "--heartbeat_every_s": True,
     "--export_trace": False, "--watchdog": False,
     "--stall_deadline_s": True, "--prometheus_file": True,
     "--disable_diagnostics": False, "--watchdog_action": True,
-    "--fault_spec": True, "--resident_scoring_bytes": True,
+    "--resident_scoring_bytes": True,
     "--pool_sharding": True, "--pool_backend": True, "--train_feed": True,
     "--feed_workers": True, "--round_pipeline": True,
     "--compilation_cache_dir": True,
@@ -97,6 +103,7 @@ def get_parser() -> argparse.ArgumentParser:
                    choices=["random", "random_balance"])
     p.add_argument("--model", type=str, default="SSLResNet18",
                    choices=["SSLResNet18", "SSLResNet50"])
+    p.add_argument("--resume_training", action="store_true")
     p.add_argument("--n_epoch", type=int, default=60)
     p.add_argument("--early_stop_patience", type=int, default=30,
                    help="0 disables early stopping")
@@ -152,6 +159,11 @@ def get_parser() -> argparse.ArgumentParser:
                    help="host:port of rank 0, to join a multi-process run")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--fault_spec", type=str, default=None,
+                   help="deterministic fault injection, e.g. "
+                        "'ckpt_write:torn@1,dispatch:delay@0.05' "
+                        "(site:action[@arg]); defaults to $AL_FAULT_SPEC; "
+                        "unset, every site is a no-op")
     for flag, takes_value in UNSUPPORTED_FLAGS.items():
         p.add_argument(flag, action=_NotPorted, nargs=1 if takes_value else 0,
                        help=argparse.SUPPRESS)
@@ -172,7 +184,8 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
         round_budget=args.round_budget, freeze_feature=args.freeze_feature,
         init_pool_size=args.init_pool_size,
         init_pool_type=args.init_pool_type, model=args.model,
-        n_epoch=args.n_epoch, early_stop_patience=args.early_stop_patience,
+        resume_training=args.resume_training, n_epoch=args.n_epoch,
+        early_stop_patience=args.early_stop_patience,
         dtype=args.dtype, bn_stats_dtype=args.bn_stats_dtype,
         stem=args.stem, fused_optimizer=args.fused_optimizer,
         optim_state_dtype=args.optim_state_dtype,
@@ -187,7 +200,8 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
         run_seed=args.run_seed, device=args.device,
         num_devices=args.num_devices,
         coordinator_address=args.coordinator_address,
-        num_processes=args.num_processes, process_id=args.process_id)
+        num_processes=args.num_processes, process_id=args.process_id,
+        fault_spec=args.fault_spec)
 
 
 def parse(argv: List[str]) -> ExperimentConfig:
@@ -211,13 +225,23 @@ def parse(argv: List[str]) -> ExperimentConfig:
         get_train_config(args.arg_pool, args.dataset, args.pretrained_root)
     except KeyError as exc:
         parser.error(str(exc.args[0]))
+    if args.fault_spec:
+        from ..faults import parse_spec
+        try:
+            parse_spec(args.fault_spec)
+        except ValueError as exc:
+            parser.error(f"--fault_spec: {exc}")
     return args_to_config(args)
 
 
 def _rank_main(rank: int, world: int, cfg: ExperimentConfig) -> None:
+    from ..faults.preempt import PreemptionRequested
     from .driver import run_experiment
 
-    run_experiment(cfg)
+    try:
+        run_experiment(cfg)
+    except PreemptionRequested:
+        pass
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -234,6 +258,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     multi_process = (cfg.coordinator_address is not None
                      or (cfg.num_processes or 1) > 1)
     world = mesh_lib.resolve_num_devices(cfg.num_devices, cfg.device)
+    if (world > 1 or multi_process) and (cfg.resume_training
+                                         or cfg.fault_spec):
+        print("--resume_training and --fault_spec on more than one rank "
+              "are not ported yet (ROADMAP.md)", file=sys.stderr)
+        return 2
     if world > 1 and not multi_process:
         # Every rank must name the same experiment directory.
         if cfg.exp_hash is None:
@@ -241,5 +270,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         mesh_lib.launch_ranks(_rank_main, world, (cfg,),
                               backend=mesh_lib.default_backend(cfg.device))
         return 0
-    run_experiment(cfg)
+    from ..faults.preempt import PreemptionRequested
+    try:
+        run_experiment(cfg)
+    except PreemptionRequested:
+        # The durable state is checkpointed and consistent: a preemption
+        # is a clean exit, and --resume_training continues the run.
+        return 0
     return 0

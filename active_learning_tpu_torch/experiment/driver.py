@@ -23,18 +23,49 @@ large-batch rules, and an int8 gradient sync must first pass the
 learning probe (``run_grad_allreduce_probe``): an accuracy delta over
 the bound degrades the run to the f32 sync with a warning and a
 ``grad_allreduce_degraded`` metric; a probe that cannot run ends the
-run.
+run, but an injected ``grad_probe`` fault is a broken probe and
+degrades it.
 
-Left out, and queued in ROADMAP.md: resuming a saved run, profiling
-windows, fault injection and the degradation ladder, the pipelined
-round and streaming.
+Crash safety (the JAX package's ``driver.py:623-681``, ``:788-950``,
+``:1011-1130``, ``:1172-1185``), on one rank:
+
+  * ``--fault_spec`` / ``$AL_FAULT_SPEC`` arm the fault registry for the
+    run (logged "fault injection ARMED"); the run disarms only what it
+    armed;
+  * SIGTERM/SIGINT are recorded (``faults/preempt.py``) and honoured at
+    the trainer's epoch boundaries and the driver's phase boundaries;
+    the journal then says ``preempted`` and ``PreemptionRequested``
+    propagates (the CLI exits 0);
+  * ``--resume_training`` loads the last completed round
+    (``experiment/resume.py``) and lets the first fit consume its
+    mid-round fit state; with no saved round, a journal that records a
+    round-0 preemption of this same experiment replays round 0 from its
+    seeds; anything else is refused;
+  * the round journal (``round_journal.json`` in ``--log_dir``) records
+    the identity, the round, phase and attempt, the labeled set's size
+    and CRC, the active rungs and the final status; an f32 gradient sync
+    the probe degraded to stays f32 across a resume;
+  * each round runs as attempts: a failed attempt rolls the strategy
+    back to its round-start snapshot (pool, rng, init state, the model's
+    weights and BatchNorm buffers, the sampler's aux state; the
+    attempted round's fit state deleted), frees the attempt's device
+    memory and asks the degradation ladder (``faults/ladder.py``) for a
+    rung; the round save retries transient failures.
+
+Left out, and queued in ROADMAP.md: resume and fault injection on more
+than one rank, profiling windows, telemetry, the pipelined round and
+streaming.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import gc
 import json
+import os
 import uuid
+import zlib
 from datetime import date
 from typing import Optional, Tuple
 
@@ -42,17 +73,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import faults
 from ..config import (ExperimentConfig, LoaderConfig, OptimizerConfig,
                       SchedulerConfig, TrainConfig, config_to_dict)
 from ..data import get_data
 from ..data.synthetic import get_data_synthetic
 from ..device import set_float32_precision
+from ..faults import ladder as ladder_lib
+from ..faults import preempt as preempt_lib
 from ..initial_pool import generate_eval_idxs, generate_init_lb_idxs
 from ..models.factory import get_network
 from ..ops import kernel_launches
 from ..parallel import mesh as mesh_lib
 from ..pool import PoolState
 from ..strategies import get_strategy
+from ..train import checkpoint as ckpt_lib
 from ..train.optim import apply_batch_scaling
 from ..train.trainer import Trainer
 from ..utils.logging import get_logger, setup_logging
@@ -104,7 +139,13 @@ def run_grad_allreduce_probe(mesh: mesh_lib.Mesh, mode: str = "int8"
     wrong numbers; only an accuracy comparison catches it.  Returns
     ``(ok, delta)``.  Only the accuracy decides: a probe that cannot run
     (a kernel that does not build or launch, a collective that fails)
-    raises, and the run ends rather than train on another path."""
+    raises, and the run ends rather than train on another path.  An
+    injected ``grad_probe`` fault is a broken probe: ``(False, None)``."""
+    try:
+        faults.site("grad_probe")
+    except (faults.InjectedFault, faults.ThreadDeath) as exc:
+        get_logger().warning(f"grad_allreduce probe failed to run: {exc!r}")
+        return False, None
     data = get_data_synthetic(n_train=96, n_test=128, num_classes=4,
                               image_size=16, seed=7)
     base_cfg = TrainConfig(
@@ -131,9 +172,11 @@ def run_grad_allreduce_probe(mesh: mesh_lib.Mesh, mode: str = "int8"
 def build_experiment(cfg: ExperimentConfig,
                      sink: Optional[MetricsSink] = None, data=None,
                      train_cfg: Optional[TrainConfig] = None, model=None,
-                     mesh: Optional[mesh_lib.Mesh] = None):
+                     mesh: Optional[mesh_lib.Mesh] = None,
+                     skip_init_pool: bool = False):
     """Wire data -> model -> trainer -> pool -> strategy from one config
-    and label the initial pool.  ``data`` (a (train, test, al) triple),
+    and label the initial pool (not with ``skip_init_pool``: a resume
+    restores the pool instead).  ``data`` (a (train, test, al) triple),
     ``train_cfg``, ``model`` and ``mesh`` (default: ``make_mesh`` from
     the config) can be injected."""
     if mesh is None:
@@ -175,7 +218,8 @@ def build_experiment(cfg: ExperimentConfig,
         if not ok:
             logger.warning(
                 f"grad_allreduce={requested} ({wire} wire form) FAILED the "
-                f"learning probe (accuracy delta {delta} vs bound "
+                f"learning probe (accuracy delta "
+                f"{delta if delta is not None else 'n/a'} vs bound "
                 f"{INT8_PROBE_MAX_ACC_DELTA}); degrading this run to the "
                 "f32 gradient sync")
             train_cfg = dataclasses.replace(train_cfg, grad_allreduce="f32")
@@ -224,7 +268,8 @@ def build_experiment(cfg: ExperimentConfig,
     strategy = get_strategy(cfg.strategy)(
         train_set, al_set, test_set, model, trainer, pool, cfg, train_cfg,
         sink=sink, rng=rng)
-    strategy.update(init_idxs, len(init_idxs))
+    if not skip_init_pool:
+        strategy.update(init_idxs, len(init_idxs))
     return strategy
 
 
@@ -250,7 +295,79 @@ def run_experiment(cfg: ExperimentConfig,
             dist.destroy_process_group()
 
 
+def _labeled_crc(pool: PoolState) -> int:
+    """CRC of the labeled mask: the journal's digest of the labeled set."""
+    return int(zlib.crc32(np.ascontiguousarray(pool.labeled).tobytes()))
+
+
+def _round_snapshot(strategy) -> dict:
+    """Everything a round mutates, at its start, so a failed attempt can
+    be rolled back and retried bit for bit: the pool, the rng, the init
+    state, the best epoch, the model's weights and BatchNorm buffers on
+    the host (round r's query scores with round r-1's best weights), and
+    the sampler's aux state."""
+    return {
+        "pool": strategy.pool.to_arrays(),
+        "rng_state": copy.deepcopy(strategy.rng.bit_generator.state),
+        "init_key": strategy.init_key.copy(),
+        "best_epoch": int(strategy.best_epoch),
+        "best_perf": float(strategy.best_perf),
+        "resume_next_fit": bool(strategy.resume_next_fit),
+        "variables": {k: v.detach().to("cpu", copy=True)
+                      for k, v in strategy.model.state_dict().items()},
+        "aux": strategy.aux_state_bytes(),
+    }
+
+
+def _restore_round_snapshot(strategy, snap: dict, round_idx: int) -> None:
+    """Roll the strategy back to ``snap``.  The attempted round's fit
+    state is deleted too: it was written under an rng chain this restore
+    rewinds.  The weights are copied into the model's own tensors, which
+    bumps their versions, so the weight caches follow."""
+    cfg = strategy.cfg
+    fit_state = ckpt_lib.weight_paths(cfg.ckpt_path, cfg.exp_name,
+                                      strategy.exp_hash,
+                                      round_idx)["fit_state"]
+    ckpt_lib.delete_fit_state(fit_state)
+    strategy.pool = PoolState.from_arrays(snap["pool"])
+    strategy.rng.bit_generator.state = copy.deepcopy(snap["rng_state"])
+    strategy.set_init_state(*(int(v) for v in snap["init_key"]))
+    strategy.best_epoch = snap["best_epoch"]
+    strategy.best_perf = snap["best_perf"]
+    strategy.resume_next_fit = snap["resume_next_fit"]
+    strategy.model.load_state_dict(snap["variables"], strict=True)
+    if snap["aux"] is not None:
+        strategy.restore_aux_state(snap["aux"])
+
+
+def _release_device_memory(device) -> None:
+    """Free what a failed attempt left: its frames and tensors, then the
+    allocator's cached blocks, so a retry at half the batch does not
+    fail on memory the dead attempt still holds."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _run(cfg, sink, data, train_cfg, model, mesh):
+    fault_spec = cfg.fault_spec or os.environ.get("AL_FAULT_SPEC")
+    if mesh.world_size > 1 and (cfg.resume_training or fault_spec):
+        raise NotImplementedError(
+            "--resume_training and fault injection on more than one rank "
+            "are not ported yet (ROADMAP.md)")
+    # Arm only when a spec is given: a caller that armed the registry
+    # itself keeps its arming.  What this run arms, it disarms.
+    if fault_spec:
+        faults.configure(fault_spec, seed=cfg.run_seed)
+    try:
+        return _run_armed(cfg, sink, data, train_cfg, model, mesh,
+                          fault_spec)
+    finally:
+        if fault_spec:
+            faults.configure(None)
+
+
+def _run_armed(cfg, sink, data, train_cfg, model, mesh, fault_spec):
     if cfg.exp_hash is None:
         cfg.exp_hash = uuid.uuid4().hex[:9]
         if mesh.world_size > 1:
@@ -264,50 +381,181 @@ def _run(cfg, sink, data, train_cfg, model, mesh):
     if mesh.world_size > 1:
         log_filename = log_filename.replace(".log", f"_p{mesh.rank}.log")
     logger = setup_logging(cfg.log_dir, log_filename, mesh.rank)
-    if sink is None:
-        sink = (JsonlSink(cfg.log_dir, experiment_key=cfg.exp_hash)
-                if mesh.is_coordinator else NullSink())
-    strategy = build_experiment(cfg, sink=sink, data=data,
-                                train_cfg=train_cfg, model=model, mesh=mesh)
-    if strategy.trainer.grad_allreduce_degraded:
-        sink.log_metric("grad_allreduce_degraded", 1, step=-1)
-    sink.log_parameters(config_to_dict(cfg))
-    init_pool_size = cfg.resolved_init_pool_size()
-    logger.info(f"Experiment Name: {cfg.exp_name}")
-    logger.info(f"Dataset: {cfg.dataset}")
-    logger.info(f"Strategy: {cfg.strategy}")
-    logger.info(f"Budget used before starting: {strategy.pool.num_labeled}")
-    logger.info(f"Log file name: {log_filename}")
-    logger.info(f"Device: {strategy.trainer.device}")
-    logger.info(f"Mesh: {mesh.describe()}, gradient sync "
-                f"{strategy.trainer.grad_sync}"
-                + (f" ({strategy.trainer.grad_sync_form} wire form)"
-                   if strategy.trainer.grad_sync_form else ""))
+    if fault_spec:
+        logger.warning(f"fault injection ARMED: {fault_spec} "
+                       f"(seed {cfg.run_seed}); disarmed at run exit")
 
-    for rd in range(cfg.rounds):
-        strategy.round = rd
-        logger.info(f"Active Learning Round {rd} start.")
-        # Round 0 queries only when there is no initial pool.
-        al_round_0 = rd == 0 and init_pool_size == 0
-        if rd > 0 or al_round_0:
-            if al_round_0:
+    journal_path = os.path.join(cfg.log_dir, faults.JOURNAL_FILE)
+    resuming = cfg.resume_training and resume_lib.has_saved_experiment(cfg)
+    preempted_round0 = False
+    if cfg.resume_training and not resuming:
+        # No completed round on disk.  A run preempted during round 0
+        # has only its mid-fit state: the journal records it, and round
+        # 0 replays from its seeds up to the fit that consumes the state.
+        # The identity check matters: the journal belongs to log_dir, not
+        # to the experiment.
+        prior = faults.read_journal(journal_path)
+        if (prior is not None and prior.get("status") == "preempted"
+                and prior.get("exp_hash") == cfg.exp_hash
+                and prior.get("exp_name") == cfg.exp_name
+                and int(prior.get("round", -1)) == 0):
+            preempted_round0 = True
+        else:
+            raise FileNotFoundError(
+                f"--resume_training: no saved experiment state for "
+                f"exp_name={cfg.exp_name!r} exp_hash={cfg.exp_hash!r} under "
+                f"{cfg.ckpt_path!r}; pass the original --exp_hash/--ckpt_path")
+    if sink is None:
+        key = (resume_lib.saved_experiment_key(cfg) if resuming
+               else cfg.exp_hash)
+        sink = (JsonlSink(cfg.log_dir, experiment_key=key)
+                if mesh.is_coordinator else NullSink())
+    journal = faults.RoundJournal(journal_path, enabled=mesh.is_coordinator)
+    # A run whose probe degraded the int8 sync to f32 stays on f32 when
+    # resumed: a probe that passed now would splice int8 rounds onto f32
+    # ones under a journal that still says degraded.
+    prior_journal = faults.read_journal(journal_path)
+    sticky_degrade = bool(
+        (resuming or preempted_round0) and prior_journal
+        and prior_journal.get("grad_allreduce") == "f32_degraded")
+    if sticky_degrade:
+        logger.info(
+            "resume: the original run degraded grad_allreduce to f32 "
+            "(journaled); keeping f32 for the resumed segment instead "
+            "of re-probing")
+        cfg.grad_allreduce = "f32"
+    journal.write(exp_name=cfg.exp_name, exp_hash=cfg.exp_hash)
+    if sticky_degrade:
+        journal.write(grad_allreduce="f32_degraded")
+
+    status = "crashed"
+    run_retries0 = faults.retry_counters()["total"]
+    preempt_lib.reset()
+    # Handlers on one rank only: N ranks would have to agree on the
+    # boundary at which they stop.
+    prev_handlers = (preempt_lib.install(logger) if mesh.world_size == 1
+                     else None)
+    try:
+        strategy = build_experiment(cfg, sink=sink, data=data,
+                                    train_cfg=train_cfg, model=model,
+                                    mesh=mesh, skip_init_pool=resuming)
+        if strategy.trainer.grad_allreduce_degraded:
+            journal.write(grad_allreduce="f32_degraded")
+            sink.log_metric("degrade_events", 1, step=-1)
+            sink.log_metric("grad_allreduce_degraded", 1, step=-1)
+        if resuming:
+            start_round = resume_lib.load_experiment(strategy, cfg)
+            strategy.resume_next_fit = True
+        else:
+            start_round = 0
+            sink.log_parameters(config_to_dict(cfg))
+            if preempted_round0:
+                logger.info(
+                    "resume: journal records a round-0 preemption; "
+                    "replaying round 0 and consuming its mid-fit state")
+                strategy.resume_next_fit = True
+        init_pool_size = cfg.resolved_init_pool_size()
+        logger.info(f"Experiment Name: {cfg.exp_name}")
+        logger.info(f"Dataset: {cfg.dataset}")
+        logger.info(f"Strategy: {cfg.strategy}")
+        logger.info(
+            f"Budget used before starting: {strategy.pool.num_labeled}")
+        logger.info(f"Log file name: {log_filename}")
+        logger.info(f"Device: {strategy.trainer.device}")
+        logger.info(f"Mesh: {mesh.describe()}, gradient sync "
+                    f"{strategy.trainer.grad_sync}"
+                    + (f" ({strategy.trainer.grad_sync_form} wire form)"
+                       if strategy.trainer.grad_sync_form else ""))
+
+        ladder = ladder_lib.DegradationLadder(strategy, logger=logger,
+                                              sink=sink, journal=journal)
+        save_retry = faults.RetryPolicy(site="experiment_save",
+                                        classify=faults.classify_exception)
+
+        def boundary(rd: int, phase: str) -> None:
+            """A driver safe point: journal where the run is, then honour
+            a recorded preemption."""
+            journal.write(round=rd, phase=phase)
+            preempt_lib.check()
+
+        def run_round(rd: int, attempt: int) -> None:
+            strategy.round = rd
+            journal.write(status="running", round=rd, phase="round_start",
+                          attempt=attempt,
+                          labeled=strategy.pool.num_labeled,
+                          labeled_crc=_labeled_crc(strategy.pool),
+                          degrade=list(ladder.active),
+                          pipeline_armed=False)
+            logger.info(f"Active Learning Round {rd} start.")
+            # Round 0 queries only when there is no initial pool.
+            al_round_0 = rd == 0 and init_pool_size == 0
+            if rd > 0 or al_round_0:
+                if al_round_0:
+                    strategy.init_network_weights()
+                with phase_timer("query_time", rd, sink, logger):
+                    labeled_idxs, cur_cost = strategy.query(cfg.round_budget)
+                strategy.update(labeled_idxs, cur_cost)
+                boundary(rd, "query")
+            with phase_timer("init_network_weights_time", rd, sink, logger):
                 strategy.init_network_weights()
-            with phase_timer("query_time", rd, sink, logger):
-                labeled_idxs, cur_cost = strategy.query(cfg.round_budget)
-            strategy.update(labeled_idxs, cur_cost)
-        with phase_timer("init_network_weights_time", rd, sink, logger):
-            strategy.init_network_weights()
-        with phase_timer("train_time", rd, sink, logger):
-            strategy.train()
-        with phase_timer("load_best_ckpt_time", rd, sink, logger):
-            strategy.load_best_ckpt()
-        with phase_timer("test_time", rd, sink, logger):
-            strategy.test()
-        if mesh.is_coordinator:
-            resume_lib.save_experiment(strategy, cfg)
-        if len(strategy.available_query_idxs(shuffle=False)) == 0:
-            logger.info("Finished querying all Images!")
-            break
-    logger.info(f"Kernel launches: {json.dumps(kernel_launches())}")
-    sink.close()
+            boundary(rd, "init")
+            with phase_timer("train_time", rd, sink, logger):
+                strategy.train()
+            boundary(rd, "train")
+            with phase_timer("load_best_ckpt_time", rd, sink, logger):
+                strategy.load_best_ckpt()
+            with phase_timer("test_time", rd, sink, logger):
+                strategy.test()
+            # No preemption check between test and save: the completed
+            # round is persisted first.
+            if mesh.is_coordinator:
+                save_retry.call(resume_lib.save_experiment, strategy, cfg)
+            cfg.resume_training = True  # a crash after this resumes
+            journal.write(round=rd, phase="round_end",
+                          labeled=strategy.pool.num_labeled,
+                          labeled_crc=_labeled_crc(strategy.pool))
+
+        for rd in range(start_round, cfg.rounds):
+            preempt_lib.check()
+            # Each round starts at full capability.
+            ladder.relax(rd)
+            snapshot = _round_snapshot(strategy)
+            for attempt in range(ladder.max_attempts()):
+                failed = False
+                try:
+                    run_round(rd, attempt)
+                    break
+                except preempt_lib.PreemptionRequested:
+                    raise
+                except (Exception, faults.ThreadDeath) as exc:
+                    if ladder.escalate(exc, rd) is None:
+                        raise
+                    _restore_round_snapshot(strategy, snapshot, rd)
+                    failed = True
+                if failed:
+                    # Outside the except block: its traceback is gone.
+                    _release_device_memory(strategy.trainer.device)
+            sink.log_metric("fault_retries_total",
+                            faults.retry_counters()["total"] - run_retries0,
+                            step=rd)
+            if len(strategy.available_query_idxs(shuffle=False)) == 0:
+                logger.info("Finished querying all Images!")
+                break
+        status = "finished"
+        journal.write(status="finished")
+    except preempt_lib.PreemptionRequested as exc:
+        # Every durable artifact is consistent: the resumed run
+        # reproduces the uninterrupted one.
+        status = "preempted"
+        journal.write(status="preempted", signal=int(exc.signum))
+        logger.info(
+            "preemption: durable state checkpointed; re-run with "
+            "--resume_training to continue bit-identically")
+        raise
+    finally:
+        preempt_lib.uninstall(prev_handlers)
+        if status == "crashed":
+            journal.write(status="crashed")
+        logger.info(f"Kernel launches: {json.dumps(kernel_launches())}")
+        sink.close()
     return strategy

@@ -115,3 +115,19 @@ class PoolState:
             "round": np.asarray(self.round),
             "invalid": np.zeros(self.n_pool, dtype=bool),
         }
+
+    @classmethod
+    def from_arrays(cls, arrs: dict) -> "PoolState":
+        """Inverse of ``to_arrays`` (either package's npz).  A pool with
+        invalid slots (the JAX package's streaming pools) is refused."""
+        n_pool = int(arrs["n_pool"])
+        if "invalid" in arrs and np.asarray(arrs["invalid"]).any():
+            raise ValueError("the saved pool has invalid (streaming) slots; "
+                             "streaming pools are not ported (ROADMAP.md)")
+        return cls(
+            n_pool=n_pool,
+            labeled=np.array(arrs["labeled"], dtype=bool, copy=True),
+            eval_idxs=np.array(arrs["eval_idxs"], dtype=np.int64, copy=True),
+            recent=np.array(arrs["recent"], dtype=np.int64, copy=True),
+            cumulative_cost=float(arrs["cumulative_cost"]),
+            round=int(arrs["round"]))

@@ -16,6 +16,11 @@ init-weight seed, each fit takes its generator seed and its epoch
 permutations, and RandomSampler its shuffles.  So picks and saved state
 match the reference's wherever the model's scores do.  The torch weight
 init itself differs from flax's.
+
+A resumed experiment (``experiment/resume.py``) restores the pool, the
+rng, the init state (``set_init_state``) and the sampler's own state
+(``restore_aux_state``); ``resume_next_fit`` lets the next fit, and
+only that one, consume a mid-round fit state.
 """
 
 from __future__ import annotations
@@ -72,6 +77,10 @@ class Strategy:
         # makes here for its init key.  Each re-init counts up from it.
         self._init_seed = int(self.rng.integers(2 ** 31))
         self._inits = 0
+        # True only for the first train() after a resume (the driver
+        # sets it): the one fit allowed to consume a mid-round fit state;
+        # other fits discard stale ones.
+        self.resume_next_fit = False
 
     # -- identity --------------------------------------------------------
 
@@ -92,6 +101,12 @@ class Strategy:
         """(seed, re-inits so far): what ``experiment_state.npz`` stores
         as ``init_key``."""
         return np.asarray([self._init_seed, self._inits], dtype=np.uint32)
+
+    def set_init_state(self, seed: int, inits: int) -> None:
+        """Continue the init stream from ``(seed, inits)``, as
+        ``init_key`` gives them (a resume, a rolled-back round)."""
+        self._init_seed = int(seed)
+        self._inits = int(inits)
 
     # -- pool views ------------------------------------------------------
 
@@ -134,6 +149,9 @@ class Strategy:
         bytes), or None: only VAAL has one."""
         return None
 
+    def restore_aux_state(self, data: bytes) -> None:
+        """Inverse of ``aux_state_bytes``, called on resume."""
+
     def load_best_ckpt(self) -> None:
         path = self.weight_paths()["best_ckpt"]
         self.logger.info(f"Loading best ckpt so far from: {path}")
@@ -172,7 +190,9 @@ class Strategy:
             n_epoch=self.cfg.n_epoch,
             es_patience=self.cfg.early_stop_patience, rng=self.rng,
             round_idx=self.round, weight_paths=self.weight_paths(),
-            metric_cb=metric_cb, batch_hook=batch_hook)
+            metric_cb=metric_cb, batch_hook=batch_hook,
+            resume_fit_state=self.resume_next_fit)
+        self.resume_next_fit = False
         self.best_epoch = result.best_epoch
         self.best_perf = float(result.best_perf)
         self.logger.info(f"Finished training on round {self.round}")

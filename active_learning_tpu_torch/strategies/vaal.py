@@ -32,6 +32,10 @@ rows are re-shuffled from the numpy rng each time their iterator runs
 dry, as in the JAX package.  The scoring pass crops at the window
 ``jax.random`` draws from ``PRNGKey(0)`` (``utils/threefry``), so a
 224-px pool is scored through the JAX package's window.
+
+The aux state (``aux_state_bytes``) is the JAX package's ``VAALState``
+tree in flax msgpack; ``restore_aux_state`` reads it back, one the JAX
+package wrote included.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from ..data.augment import apply_view
 from ..data.pipeline import iterate_batches
 from ..models.vaal import (VAE, Discriminator, crop_size_for, crop_window,
                            draw_window, init_vaal_weights)
-from ..models.weights import adam_to_flax, to_flax_vaal
+from ..models.weights import adam_to_flax, from_flax_vaal, to_flax_vaal
 from ..train import checkpoint as ckpt_lib
 from ..train.optim import Adam, make_lr_schedule
 from ..utils import threefry
@@ -97,6 +101,26 @@ class VAALModels:
                 "vae_opt": adam_to_flax(self.vae, self.vae_opt),
                 "d_params": to_flax_vaal(self.disc.state_dict())["params"],
                 "d_opt": adam_to_flax(self.disc, self.d_opt)}
+
+    def load_state_tree(self, tree: Dict) -> None:
+        """Inverse of ``state_tree``, in place (strict)."""
+        self.vae.load_state_dict(from_flax_vaal(
+            {"params": tree["vae_params"],
+             "batch_stats": tree["vae_stats"]}), strict=True)
+        self.disc.load_state_dict(from_flax_vaal(
+            {"params": tree["d_params"]}), strict=True)
+        for module, opt, sub in ((self.vae, self.vae_opt, tree["vae_opt"]),
+                                 (self.disc, self.d_opt, tree["d_opt"])):
+            names = [n for n, _ in module.named_parameters()]
+            for key, bufs in (("mu", opt.mu), ("nu", opt.nu)):
+                by_name = from_flax_vaal({"params": sub[key]})
+                if set(by_name) != set(names):
+                    raise ValueError(f"VAAL {key} leaves are not the "
+                                     "module's parameters")
+                with torch.no_grad():
+                    for name, buf in zip(names, bufs):
+                        buf.copy_(by_name[name])
+            opt.count = int(np.asarray(sub["count"]))
 
 
 def vaal_step(m: VAALModels, x_l: torch.Tensor, x_u: torch.Tensor,
@@ -184,6 +208,18 @@ class VAALSampler(Strategy):
         if self.vaal is None:
             return None
         return ckpt_lib.msgpack_serialize(self.vaal.state_tree())
+
+    def restore_aux_state(self, data: bytes) -> None:
+        if self.vaal is None:
+            self.vaal = VAALModels(self.z_dim, self.crop,
+                                   self.trainer.device)
+        self.vaal.load_state_tree(ckpt_lib.msgpack_restore(data))
+
+    def set_init_state(self, seed: int, inits: int) -> None:
+        """The VAE's init stream counts with the classifier's (both
+        re-init once a round)."""
+        super().set_init_state(seed, inits)
+        self._vaal_inits = int(inits)
 
     # -- training ---------------------------------------------------------
 

@@ -19,7 +19,10 @@ Also the best-checkpoint bus of the JAX package's
 ``train/checkpoint.py``: ``publish_best`` (weights, then a
 ``.tag.json`` sidecar with the monotonic (round, epoch), each an atomic
 tmp+rename), ``latest_best_ckpt``, ``read_best_tag`` and
-``BestCkptWatcher`` for the executor's hot reload.
+``BestCkptWatcher`` for the executor's hot reload; and its mid-round fit
+state (``save_fit_state`` / ``load_fit_state`` / ``delete_fit_state``).
+Every write passes the ``ckpt_write`` fault site, with its torn point
+between the two renames of each atomic pair.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import struct
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .. import faults
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -280,9 +285,18 @@ def msgpack_serialize(tree: Any) -> bytes:
 
 # -- variables files ---------------------------------------------------------
 
+# The JAX package's weight-compatibility version: bumped when saved
+# weights stop being interchangeable across code versions although their
+# shapes still match.  The experiment-level resume refuses another
+# version; the mid-round fit state is discarded.  The port's checkpoints
+# use the JAX package's layout, version 2.
+MODEL_FORMAT_VERSION = 2
+
+
 def save_variables(path: str, variables: Dict[str, Any]) -> None:
     """Atomic write (tmp + rename): a reader never sees a half-written
     checkpoint."""
+    faults.site("ckpt_write")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as fh:
@@ -319,6 +333,9 @@ def publish_best(path: str, variables: Dict[str, Any], *, round_idx: int,
     (round, epoch) tag sidecar.  Within a round the best epoch only
     grows, so the tag orders publishes exactly where mtimes cannot."""
     save_variables(path, variables)
+    # Torn point between the pair's renames: weights without their tag,
+    # which the watcher reads as an untagged (older) publish.
+    faults.site("ckpt_write", point="torn")
     tag = {"round": int(round_idx), "epoch": int(epoch)}
     tmp = f"{path}.tag.json.tmp"
     with open(tmp, "w") as fh:
@@ -379,6 +396,105 @@ class BestCkptWatcher:
         return variables, rd, tag
 
 
+# -- mid-round fit state ----------------------------------------------------
+#
+# Everything needed to continue an interrupted Trainer.fit from its last
+# saved epoch bit for bit: model variables (flax layout), the optimizer
+# state (the fused path's {"trace": ...}), the early-stopping
+# bookkeeping, the numpy Generator that shuffles the batches, and the
+# fit's torch.Generator (the port's stand-in for the JAX fit's PRNG key).
+# Two files: {path}.msgpack (the trees) + {path}.json (counters and rng
+# states), each atomic, both stamped (round, epoch) and cross-checked at
+# load, so a crash between the two renames reads as nothing to resume.
+# The keys are the JAX package's; the generator state rides under
+# "torch_generator".  A fit state without it was written by the JAX
+# package, whose augmentation draws come from a key the port cannot
+# follow: it is discarded and the round restarts at epoch 1.
+
+GENERATOR_KEY = "torch_generator"
+
+
+def generator_state(gen) -> Dict[str, Any]:
+    """A torch.Generator's state as json: its device type and bytes."""
+    return {"device_type": gen.device.type,
+            "state": bytes(gen.get_state().numpy().tobytes()).hex()}
+
+
+def save_fit_state(path: str, *, variables: Dict[str, Any], opt_state: Any,
+                   step: int, epoch: int, round_idx: int, best_perf: float,
+                   best_epoch: int, es_count: int, key: Any,
+                   rng: np.random.Generator,
+                   generator: Dict[str, Any]) -> None:
+    """``variables`` and ``opt_state`` are numpy trees; ``key`` the JAX
+    fit's key for the same seed draw; ``generator`` from
+    ``generator_state``."""
+    faults.site("ckpt_write")
+    trees = {"variables": variables, "opt_state": opt_state,
+             "stamp": np.asarray([int(round_idx), int(epoch)])}
+    with open(path + ".msgpack.tmp", "wb") as fh:
+        fh.write(msgpack_serialize(trees))
+    os.replace(path + ".msgpack.tmp", path + ".msgpack")
+    # Torn point between the pair's renames: trees without counters,
+    # which the stamp cross-check reads as nothing to resume.
+    faults.site("ckpt_write", point="torn")
+    meta = {
+        "epoch": int(epoch),
+        "round_idx": int(round_idx),
+        "model_format": MODEL_FORMAT_VERSION,
+        "step": int(step),
+        "best_perf": float(best_perf),
+        "best_epoch": int(best_epoch),
+        "es_count": int(es_count),
+        "key": np.asarray(key).tolist(),
+        "rng_state": rng.bit_generator.state,
+        GENERATOR_KEY: generator,
+    }
+    with open(path + ".json.tmp", "w") as fh:
+        json.dump(meta, fh)
+    os.replace(path + ".json.tmp", path + ".json")
+
+
+def load_fit_state(path: str, round_idx: int) -> Optional[Dict[str, Any]]:
+    """The saved mid-round state, or None when there is nothing to
+    resume: no pair, a state of another round, another model format, a
+    JAX-written state (no generator state), or a torn pair."""
+    if not (os.path.exists(path + ".msgpack")
+            and os.path.exists(path + ".json")):
+        return None
+    with open(path + ".json") as fh:
+        meta = json.load(fh)
+    if meta.get("round_idx") != int(round_idx):
+        return None
+    from ..utils.logging import get_logger
+    if int(meta.get("model_format", 1)) != MODEL_FORMAT_VERSION:
+        get_logger().warning(
+            f"Discarding mid-round fit state with model format "
+            f"{meta.get('model_format', 1)} (this code writes "
+            f"{MODEL_FORMAT_VERSION}); the round restarts from scratch")
+        return None
+    if GENERATOR_KEY not in meta:
+        get_logger().warning(
+            "Discarding a mid-round fit state without the port's "
+            "torch.Generator state (written by the JAX package, whose "
+            "augmentation draws come from its PRNG key); round "
+            f"{round_idx} restarts from its first epoch")
+        return None
+    with open(path + ".msgpack", "rb") as fh:
+        trees = msgpack_restore(fh.read())
+    stamp = np.asarray(trees.pop("stamp", [-1, -1])).tolist()
+    if stamp != [meta["round_idx"], meta["epoch"]]:
+        return None
+    return {**meta, **trees}
+
+
+def delete_fit_state(path: str) -> None:
+    for suffix in (".msgpack", ".json"):
+        try:
+            os.remove(path + suffix)
+        except FileNotFoundError:
+            pass
+
+
 def flatten_tree(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
                  ) -> List[Tuple[Tuple[str, ...], Any]]:
     """[(path, leaf)] of a nested dict, in insertion order."""
@@ -396,7 +512,7 @@ def weight_paths(ckpt_root: str, exp_name: str, exp_hash: str,
     """best/current/previous checkpoint paths of a round, under
     ``{ckpt_root}/{exp_name}_{exp_hash}`` (the JAX package's
     ``train/checkpoint.py:61-80``; ``fit_state`` names the mid-round
-    resume state, which the port does not write yet)."""
+    fit state's pair, without its suffixes)."""
     ckpt_dir = os.path.join(ckpt_root, f"{exp_name}_{exp_hash}")
     os.makedirs(ckpt_dir, exist_ok=True)
     return {

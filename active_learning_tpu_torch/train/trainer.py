@@ -41,25 +41,44 @@ the backward and before the norm and the update, by one flat
 the same parameters.  Only the coordinator writes checkpoints; the
 others wait at the end of the fit until they are on disk.
 
-Not ported yet (ROADMAP.md): the device-resident and epoch-scan feeds,
-and the mid-round fit state and its resume.
+The mid-round fit state (JAX ``trainer.py:1160-1240``, ``:1470-1525``):
+every ``TrainConfig.current_ckpt_every`` epochs, and at the epoch a
+preemption lands in, the coordinator saves the model's variables, the
+momentum, the early-stopping bookkeeping, the numpy ``rng`` and the
+fit's ``torch.Generator`` (``train/checkpoint.save_fit_state``).  A fit
+called with ``resume_fit_state`` continues from the saved epoch bit for
+bit; one called without it discards a stale state; a completed fit
+deletes its state.  A hooked fit (VAAL) writes none and ignores one: its
+co-trained state lives outside the fit state, so its round restarts.
+The early-stop break comes before the save, so a state past patience
+never persists.  A fit that ran on one device type does not resume on
+another (the generator's state differs in kind): that raises.  Every
+checkpoint write retries transient failures (``faults.RetryPolicy``),
+and every train step passes the ``dispatch`` fault site.
+
+Not ported yet (ROADMAP.md): the device-resident and epoch-scan feeds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import faults
 from ..config import TrainConfig
 from ..data.augment import apply_view
 from ..data.core import Dataset
 from ..data.pipeline import iterate_batches
 from ..device import resolve_device
+from ..faults import preempt as preempt_lib
 from ..models.resnet import set_sync_group
-from ..models.weights import to_flax_variables
+from ..models.weights import (from_flax_variables, to_flax_trace,
+                              to_flax_variables)
 from ..parallel import mesh as mesh_lib
 from ..utils.logging import get_logger
 from . import checkpoint as ckpt_lib
@@ -67,9 +86,12 @@ from .evaluation import accumulate_metrics, batch_metric_counts
 from .optim import make_lr_schedule, make_optimizer
 
 
-# Epoch cadence of the current-weights checkpoint (the JAX package's
-# TrainConfig.current_ckpt_every default, which no arg pool changes).
-CURRENT_CKPT_EVERY = 25
+# Checkpoint writes under the one retry policy (JAX trainer.py:54-60):
+# every write is atomic, so a retried call re-runs the whole publish and
+# the pair lands consistent.
+_CKPT_RETRY = faults.RetryPolicy(site="ckpt_write",
+                                 classify=faults.classify_exception,
+                                 max_attempts=3)
 
 
 @dataclasses.dataclass
@@ -194,6 +216,56 @@ class Trainer:
         return {k: v.detach().clone()
                 for k, v in self.model.state_dict().items()}
 
+    def opt_state_tree(self) -> Dict:
+        """The optimizer's state as the JAX package lays it out (numpy):
+        the fused path's ``{"trace": params-shaped tree}`` ({} without
+        momentum), or Adam's ``{"count", "mu", "nu"}``."""
+        names = [n for n, _ in self.model.named_parameters()]
+        opt = self.optimizer
+        if hasattr(opt, "mu"):
+            return {"count": np.asarray(opt.count, dtype=np.int32),
+                    "mu": to_flax_variables(dict(zip(names, opt.mu)))[
+                        "params"],
+                    "nu": to_flax_variables(dict(zip(names, opt.nu)))[
+                        "params"]}
+        if opt.trace is None:
+            return {}
+        return to_flax_trace(dict(zip(names, opt.trace)))
+
+    def load_opt_state_tree(self, tree: Dict) -> None:
+        """Inverse of ``opt_state_tree``, in place.  Raises ValueError
+        when the tree's layout is not this optimizer's."""
+        names = [n for n, _ in self.model.named_parameters()]
+        opt = self.optimizer
+        if hasattr(opt, "mu"):
+            if set(tree) != {"count", "mu", "nu"}:
+                raise ValueError(f"not an Adam state: {sorted(tree)}")
+            groups = [(opt.mu, tree["mu"]), (opt.nu, tree["nu"])]
+        elif opt.trace is None:
+            if tree:
+                raise ValueError(f"not an empty state: {sorted(tree)}")
+            groups = []
+        else:
+            if set(tree) != {"trace"}:
+                raise ValueError(f"not a fused SGD state: {sorted(tree)}")
+            groups = [(opt.trace, tree["trace"])]
+        loaded = []
+        for bufs, sub in groups:
+            by_name = from_flax_variables({"params": sub})
+            if set(by_name) != set(names):
+                raise ValueError("the optimizer state's leaves are not "
+                                 "the model's parameters")
+            for name, buf in zip(names, bufs):
+                if tuple(by_name[name].shape) != tuple(buf.shape):
+                    raise ValueError(f"optimizer leaf {name} has shape "
+                                     f"{tuple(by_name[name].shape)}")
+                loaded.append((buf, by_name[name]))
+        with torch.no_grad():
+            for buf, value in loaded:
+                buf.copy_(value)
+        if hasattr(opt, "mu"):
+            opt.count = int(tree["count"])
+
     # -- steps -----------------------------------------------------------
 
     def to_device(self, batch: Dict[str, np.ndarray]
@@ -209,6 +281,7 @@ class Trainer:
         this rank's slice of a global batch); returns this rank's share
         of the loss (the shares sum to the global loss) and the global
         gradient norm as device scalars (no host sync)."""
+        faults.site("dispatch")
         x = apply_view(batch["image"], view, generator=generator,
                        train=True, rows=rows)
         labels = batch["label"].to(torch.int64)
@@ -276,46 +349,97 @@ class Trainer:
             weight_paths: Optional[Dict[str, str]] = None,
             metric_cb: Optional[Callable[[str, float, int], None]] = None,
             batch_hook: Optional[Callable[[int, Dict[str, torch.Tensor]],
-                                          None]] = None) -> FitResult:
+                                          None]] = None,
+            resume_fit_state: bool = True) -> FitResult:
         """Train on ``train_set[labeled_idxs]`` with per-epoch validation
         on ``al_set[eval_idxs]`` and early stopping.  ``es_patience == 0``
         disables early stopping; the final weights are then the best.
         The model ends at the final epoch's weights; the best are on
-        disk at ``weight_paths["best_ckpt"]``."""
+        disk at ``weight_paths["best_ckpt"]``.  With ``weight_paths``,
+        ``resume_fit_state`` continues from this round's fit state when
+        one is on disk; without it a stale one is discarded."""
         use_es = es_patience != 0 and len(eval_idxs) > 0
         labels = train_set.targets[labeled_idxs]
         class_weights = torch.from_numpy(
             self.class_weights(labels)).to(self.device)
         self.reinit_optimizer()
         bs = self.padded_batch_size(self.cfg.loader_tr.batch_size)
+        every = max(1, int(self.cfg.current_ckpt_every))
         rows = self.local_rows(bs)
         writer = weight_paths if self.mesh.is_coordinator else None
         best_perf, best_epoch, es_count = 0.0, 0, 0
         best_variables = None
         best_dirty = False
         history: List[Dict[str, float]] = []
+        seed = int(rng.integers(0, 2 ** 31 - 1))
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(int(rng.integers(0, 2 ** 31 - 1)))
+        generator.manual_seed(seed)
+        step = 0
+        start_epoch = 1
+        if weight_paths and batch_hook is None:
+            if resume_fit_state:
+                saved = self._load_fit_state(weight_paths, round_idx)
+            else:
+                saved = None
+                if writer and os.path.exists(weight_paths["fit_state"]
+                                             + ".json"):
+                    self.logger.warning(
+                        "Discarding a stale mid-round fit state from a "
+                        "previous run (start this run with "
+                        "--resume_training to consume it)")
+                if writer:
+                    ckpt_lib.delete_fit_state(weight_paths["fit_state"])
+            if saved is not None:
+                best_perf = float(saved["best_perf"])
+                best_epoch = int(saved["best_epoch"])
+                es_count = int(saved["es_count"])
+                step = int(saved["step"])
+                rng.bit_generator.state = saved["rng_state"]
+                generator.set_state(torch.tensor(
+                    list(bytes.fromhex(saved[ckpt_lib.GENERATOR_KEY][
+                        "state"])), dtype=torch.uint8))
+                start_epoch = int(saved["epoch"]) + 1
+                if best_epoch > 0:
+                    if os.path.exists(weight_paths["best_ckpt"]):
+                        best_variables = {
+                            k: v.to(self.device) for k, v in
+                            from_flax_variables(ckpt_lib.load_variables(
+                                weight_paths["best_ckpt"])).items()}
+                    else:
+                        # best_perf refers to weights that are gone.
+                        self.logger.warning(
+                            f"fit-state references best epoch {best_epoch} "
+                            "but best_ckpt is missing; restarting "
+                            "best-model tracking")
+                        best_perf, best_epoch, es_count = 0.0, 0, 0
+                self.logger.info(
+                    f"Resuming round {round_idx} training from epoch "
+                    f"{start_epoch} (mid-round fit state)")
         self._train_mode()
 
-        epochs_run = 0
-        for epoch in range(1, n_epoch + 1):
+        epochs_run = start_epoch - 1
+        for epoch in range(start_epoch, n_epoch + 1):
             epochs_run = epoch
             lr = float(np.float32(self.lr_at(epoch - 1)))
             losses, gnorms = [], []
-            for batch in iterate_batches(
+            # closing(): a failed step shuts the gather threads down now,
+            # not when the traceback is collected.
+            with contextlib.closing(iterate_batches(
                     train_set, labeled_idxs, bs, shuffle=True, rng=rng,
                     num_threads=self.cfg.loader_tr.num_workers,
                     prefetch=self.cfg.loader_tr.prefetch,
-                    s2d=self.host_s2d and batch_hook is None, rows=rows):
-                dev_batch = self.to_device(batch)
-                loss, gnorm = self.train_step(
-                    dev_batch, lr, class_weights, train_set.view, generator,
-                    None if rows is None else (bs, rows))
-                losses.append(loss)
-                gnorms.append(gnorm)
-                if batch_hook is not None:
-                    batch_hook(epoch, dev_batch)
+                    s2d=self.host_s2d and batch_hook is None,
+                    rows=rows)) as batches:
+                for batch in batches:
+                    dev_batch = self.to_device(batch)
+                    loss, gnorm = self.train_step(
+                        dev_batch, lr, class_weights, train_set.view,
+                        generator, None if rows is None else (bs, rows))
+                    step += 1
+                    losses.append(loss)
+                    gnorms.append(gnorm)
+                    if batch_hook is not None:
+                        batch_hook(epoch, dev_batch)
             train_loss = 0.0
             if losses:
                 # Each rank holds its share of every step's loss.
@@ -343,18 +467,44 @@ class Trainer:
                     best_dirty = True
                 else:
                     es_count += 1
-                if writer and epoch % CURRENT_CKPT_EVERY == 0:
+                if writer and epoch % every == 0:
                     if best_dirty:
                         self._publish(writer, best_variables,
                                       round_idx, best_epoch)
                         best_dirty = False
-                    ckpt_lib.save_variables(
-                        writer["current_ckpt"],
+                    _CKPT_RETRY.call(
+                        ckpt_lib.save_variables, writer["current_ckpt"],
                         to_flax_variables(self.model.state_dict()))
             history.append(record)
             if use_es and es_count > es_patience:
+                # Before the fit-state save: a state past patience must
+                # never persist, or its resume would train on past the
+                # unbroken run's stop.
                 self.logger.info("Early stopping criterion reached. ")
                 break
+            preempted = preempt_lib.requested() is not None
+            if (writer and batch_hook is None
+                    and (epoch % every == 0 or preempted)
+                    and epoch < n_epoch):
+                if preempted and best_dirty:
+                    # The state references best_epoch: without this
+                    # publish the resumed fit would find no best_ckpt.
+                    self._publish(writer, best_variables, round_idx,
+                                  best_epoch)
+                    best_dirty = False
+                _CKPT_RETRY.call(
+                    ckpt_lib.save_fit_state, writer["fit_state"],
+                    variables=to_flax_variables(self.model.state_dict()),
+                    opt_state=self.opt_state_tree(), step=step,
+                    epoch=epoch, round_idx=round_idx, best_perf=best_perf,
+                    best_epoch=best_epoch, es_count=es_count,
+                    key=[0, seed], rng=rng,
+                    generator=ckpt_lib.generator_state(generator))
+            if preempted:
+                # The epoch boundary is the safe point: the state just
+                # saved (or, at the last epoch, the round's own save)
+                # resumes bit for bit.
+                preempt_lib.check()
 
         if best_variables is None:
             best_epoch = epochs_run
@@ -363,9 +513,12 @@ class Trainer:
         if best_dirty and writer:
             self._publish(writer, best_variables, round_idx, best_epoch)
         if writer:
-            ckpt_lib.save_variables(
-                writer["current_ckpt"],
+            _CKPT_RETRY.call(
+                ckpt_lib.save_variables, writer["current_ckpt"],
                 to_flax_variables(self.model.state_dict()))
+            # The round's fit completed: a restart re-runs it from the
+            # experiment-level state.
+            ckpt_lib.delete_fit_state(writer["fit_state"])
         if weight_paths:
             # The other ranks read best_ckpt next: not before it is on
             # disk.
@@ -379,10 +532,53 @@ class Trainer:
         return FitResult(best_epoch=best_epoch, best_perf=best_perf,
                          epochs_run=epochs_run, history=history)
 
+    def _load_fit_state(self, weight_paths: Dict[str, str],
+                        round_idx: int) -> Optional[Dict]:
+        """This round's fit state restored into the model and the
+        optimizer, or None (nothing to resume, or a state whose layout
+        does not fit: discarded, the round restarts at epoch 1)."""
+        path = weight_paths["fit_state"]
+        saved = ckpt_lib.load_fit_state(path, round_idx)
+        if saved is None:
+            return None
+        if self.mesh.world_size > 1:
+            raise NotImplementedError(
+                "resuming a fit on more than one rank is not ported yet "
+                "(ROADMAP.md)")
+        gen = saved[ckpt_lib.GENERATOR_KEY]
+        if gen.get("device_type") != self.device.type:
+            raise RuntimeError(
+                f"the mid-round fit state {path} was written by a fit on "
+                f"{gen.get('device_type')}; its augmentation stream "
+                f"cannot continue on {self.device.type} bit for bit. "
+                f"Resume on {gen.get('device_type')}, or delete "
+                f"{path}.json to restart round {round_idx}")
+        try:
+            state_dict = from_flax_variables(saved["variables"])
+            current = self.model.state_dict()
+            if set(state_dict) != set(current) or any(
+                    tuple(state_dict[k].shape) != tuple(v.shape)
+                    for k, v in current.items()):
+                raise ValueError("the saved variables are not this "
+                                 "model's")
+            # Both checked before anything is copied.
+            self.load_opt_state_tree(saved["opt_state"])
+            # In place: the copies bump the tensors' versions, so the
+            # models' weight caches follow.
+            self.model.load_state_dict(state_dict, strict=True)
+        except (ValueError, KeyError) as exc:
+            self.logger.warning(
+                "mid-round fit state does not fit this model or optimizer "
+                f"({exc}); discarding it: round {round_idx} restarts from "
+                "its first epoch")
+            ckpt_lib.delete_fit_state(path)
+            return None
+        return saved
+
     @staticmethod
     def _publish(weight_paths: Dict[str, str],
                  variables: Dict[str, torch.Tensor], round_idx: int,
                  epoch: int) -> None:
-        ckpt_lib.publish_best(weight_paths["best_ckpt"],
-                              to_flax_variables(variables),
-                              round_idx=round_idx, epoch=epoch)
+        _CKPT_RETRY.call(ckpt_lib.publish_best, weight_paths["best_ckpt"],
+                         to_flax_variables(variables), round_idx=round_idx,
+                         epoch=epoch)

@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--detail PATH]
 
 Drives the port's serving, training and acquisition paths, the s2d
-stem through all three, data-parallel training on two ranks and the
-CIFAR-10 fine-tuning sweep (``active_learning_tpu_torch``), on the card,
+stem through all three, data-parallel training on two ranks, the
+CIFAR-10 fine-tuning sweep and crash-safe rounds
+(``active_learning_tpu_torch``), on the card,
 through the entry points a user calls, and fails (non-zero exit) if any
 phase fails:
 
@@ -218,6 +219,25 @@ phase fails:
     after every validation of a 2-epoch fit (fine-tuning, and from
     scratch with BatchNorm in training mode) the cached evaluation
     equals a freshly loaded model's, count for count.
+21. Resume and faults on the card, on phase 20's rows: (1) path a's
+    ``Trainer.fit`` (SSLResNet50, B = 128, 224 px, bf16, BatchNorm in
+    training mode, 512 + 128 rows, the fit state every 2 epochs, 6
+    epochs) unbroken, interrupted in the process after epoch 4's save,
+    and resumed: parameters, BatchNorm buffers, momentum, best epoch and
+    accuracy and the history from epoch 5 bit-equal to the unbroken
+    fit's, kernels B, C and D launched in the resumed fit, the fit
+    state's save timed and sized; (2) phase 20's CIFAR job cut to 2
+    rounds of 4 epochs through the CLI, unbroken, SIGTERM'd in round 1's
+    fit (exit 0, journal ``preempted``) and resumed with
+    ``--resume_training``: ``experiment_state.npz`` and
+    ``best_rd_1.msgpack`` bit-equal, B, B′ and D launched in the resumed
+    process; (3) phase 5's CLI with ``--fault_spec ckpt_write:torn@1``:
+    the torn publish retried, ``experiment_state.npz`` equal to phase
+    5's; (4) a child capped by ``set_per_process_memory_fraction``
+    between its measured B = 64 and B = 128 SSLResNet50 step peaks runs
+    2 rounds: a real ``torch.OutOfMemoryError`` engages ``batch_half``
+    in each round, the next round starts at B = 128 again, both rounds
+    tested.
 
 Prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -235,6 +255,7 @@ import dataclasses
 import itertools
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1540,6 +1561,7 @@ def _run_cli(root: str, extra) -> dict:
     exp_dir = os.path.join(root, "ckpt", "active_learning_smoke")
     with np.load(os.path.join(exp_dir, "experiment_state.npz")) as st:
         eval_idxs = st["eval_idxs"].copy()
+        state = {k: st[k].copy() for k in st.files}
     with open(os.path.join(root, "logs", "assets",
                            "labeled_idxs_on_rd_0.txt")) as fh:
         round0 = np.array([int(v) for v in fh.read().split(",")])
@@ -1552,7 +1574,7 @@ def _run_cli(root: str, extra) -> dict:
     times = [ln for ln in res.stderr.splitlines() if "_time is " in ln]
     return {"wall_s": wall, "launches": launches, "eval_idxs": eval_idxs,
             "round0": round0, "tested": tested, "exp_dir": exp_dir,
-            "phase_times": times}
+            "phase_times": times, "state": state, "stderr": res.stderr}
 
 
 def run_cli_path(tmp: str):
@@ -1600,7 +1622,7 @@ def run_cli_path(tmp: str):
         "equal, best_rd_0 loads into the serve model and scores")
     return {"card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
             "launches": card["launches"],
-            "phase_times": card["phase_times"]}
+            "phase_times": card["phase_times"], "state": card["state"]}
 
 
 def check_train_step_f32_against_cpu(devices=("cuda", "cpu"),
@@ -5164,7 +5186,407 @@ def run_cifar_finetune(root: str, dev, rows=CIFAR_ROWS, cli_extra=()):
     res["cache_repair"] = check_cache_repair(dev, data, {
         "finetune": train_cfg,
         "scratch": get_train_config("default", cfg.dataset)})
+    # Phase 21 reuses the archive's rows and the checkpoint.
+    res["inputs"] = {"pretrained_root": pre, "job": job}
     return res, detail
+
+
+# -- phase 21: resume and faults on the card -----------------------------------
+
+class _Interrupt(Exception):
+    """Stands in for a crash in the middle of a fit."""
+
+
+def _same_tensors(got: dict, want: dict, what: str) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys differ")
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} tensors differ, first "
+                             f"{bad[:5]}")
+
+
+def _fit_state_of(trainer) -> dict:
+    out = {k: v.detach().clone() for k, v in
+           trainer.model.state_dict().items()}
+    for i, t in enumerate(trainer.optimizer.trace or []):
+        out[f"trace.{i}"] = t.detach().clone()
+    return out
+
+
+def run_fit_resume(dev, root: str, n_epoch: int = 6, every: int = 2):
+    """21.1: ``Trainer.fit`` at path a's width (SSLResNet50, 1000
+    classes, 224x224x3, bf16, B = 128, BatchNorm in training mode), 512
+    train and 128 validation rows, the fit state every ``every`` epochs:
+    unbroken; then interrupted in the process after epoch 4's save;
+    then resumed.  The resumed fit's parameters, BatchNorm buffers,
+    momentum, best epoch, best accuracy and history from epoch 5 on
+    equal the unbroken fit's bit for bit, and kernels B, C and D launch
+    in it.  Also times a fit-state save and reads its size."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.data.synthetic import get_data_synthetic
+    from active_learning_tpu_torch.experiment.arg_pools import \
+        get_train_config
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.resnet import init_weights
+    from active_learning_tpu_torch.train import checkpoint as ckpt_lib
+    from active_learning_tpu_torch.train.trainer import Trainer
+
+    train_set, test_set, _ = get_data_synthetic(
+        n_train=512, n_test=128, num_classes=1000, image_size=224,
+        seed=SEED)
+    cfg = dataclasses.replace(get_train_config("default", "imagenet"),
+                              current_ckpt_every=every)
+    saves = []
+    real_save = ckpt_lib.save_fit_state
+
+    def timed_save(path, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(path, **kw)
+        saves.append((time.perf_counter() - t0,
+                      os.path.getsize(path + ".msgpack")
+                      + os.path.getsize(path + ".json")))
+
+    def fit(tag, interrupt_at=None):
+        model = get_network("imagenet", "SSLResNet50", num_classes=1000,
+                            device=dev)
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        trainer = Trainer(model, cfg, 1000, dev)
+        paths = ckpt_lib.weight_paths(root, "fit", tag, round_idx=0)
+
+        def cb(name, value, step):
+            if step == interrupt_at and name.endswith("validation_accuracy"):
+                raise _Interrupt()
+
+        t0 = time.perf_counter()
+        result = trainer.fit(train_set, np.arange(len(train_set)), test_set,
+                             np.arange(len(test_set)), n_epoch=n_epoch,
+                             es_patience=n_epoch,
+                             rng=np.random.default_rng(SEED), round_idx=0,
+                             weight_paths=paths, metric_cb=cb)
+        torch.cuda.synchronize()
+        return result, trainer, paths, time.perf_counter() - t0
+
+    ckpt_lib.save_fit_state = timed_save
+    try:
+        ref, ref_tr, _, ref_s = fit("unbroken")
+        want = _fit_state_of(ref_tr)
+        del ref_tr
+        torch.cuda.empty_cache()
+        try:
+            fit("resumed", interrupt_at=5)
+            raise AssertionError("the interrupted fit ran to its end")
+        except _Interrupt:
+            pass
+        torch.cuda.empty_cache()
+        paths = ckpt_lib.weight_paths(root, "fit", "resumed", round_idx=0)
+        saved = ckpt_lib.load_fit_state(paths["fit_state"], 0)
+        if saved is None or saved["epoch"] != 4:
+            raise AssertionError("no epoch-4 fit state after the interrupt")
+        del saved
+        ops.reset_kernel_launches()
+        got, got_tr, _, got_s = fit("resumed")
+        launches = ops.kernel_launches()
+    finally:
+        ckpt_lib.save_fit_state = real_save
+    _same_tensors(_fit_state_of(got_tr), want, "resumed fit")
+    del got_tr, want
+    torch.cuda.empty_cache()
+    if (got.history[0]["epoch"] != 5 or got.history != ref.history[4:]
+            or got.best_epoch != ref.best_epoch
+            or got.best_perf != ref.best_perf
+            or got.epochs_run != ref.epochs_run):
+        raise AssertionError(f"resumed history {got.history} / best "
+                             f"{got.best_epoch} {got.best_perf} against "
+                             f"{ref.history[4:]} / {ref.best_epoch} "
+                             f"{ref.best_perf}")
+    for k in ("bn_act", "bn_train_stats", "bn_train_bwd_reduce",
+              "bn_train_dx", "fused_sgd"):
+        if launches[k] < 1:
+            raise AssertionError(f"the resumed fit never launched {k}: "
+                                 f"{launches}")
+    out = {"unbroken_s": ref_s, "resumed_s": got_s,
+           "best_epoch": ref.best_epoch, "launches": launches,
+           "fit_state_save_s": [t for t, _ in saves],
+           "fit_state_bytes": saves[0][1] if saves else None}
+    log(f"21.1 fit resume at path a's width: bit-identical from epoch 5 "
+        f"(best epoch {ref.best_epoch}); unbroken {ref_s:.1f} s, resumed "
+        f"{got_s:.1f} s; fit-state saves {out['fit_state_save_s']} s of "
+        f"{out['fit_state_bytes']} bytes; launches {launches}")
+    return out
+
+
+def _journal(log_dir: str) -> dict:
+    try:
+        with open(os.path.join(log_dir, "round_journal.json")) as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return {}
+
+
+def _cli_launches(stderr: str) -> dict:
+    line = [ln for ln in stderr.splitlines() if "Kernel launches: " in ln][-1]
+    return json.loads(line.split("Kernel launches: ", 1)[1])
+
+
+def run_cifar_preempt(root: str, inputs: dict, n_epoch: int = 4,
+                      rounds: int = 2):
+    """21.2: phase 20's CIFAR job (SSLResNet18 from the seeded SimCLR
+    checkpoint, BatchNorm in eval mode, the same 20,431 facsimile rows)
+    cut to ``rounds`` rounds of ``n_epoch`` epochs through ``python -m
+    active_learning_tpu_torch``: once unbroken; once as a child that
+    takes a real SIGTERM in round 1's fit (every train step stretched by
+    ``dispatch:delay@0.05`` to widen the window), which must exit 0 with
+    the journal saying preempted; once with ``--resume_training``.  The
+    resumed run's ``experiment_state.npz`` (every key) and
+    ``best_rd_1.msgpack`` equal the unbroken run's bit for bit, and
+    kernels B, B′ and D launch in the resumed process."""
+    from active_learning_tpu_torch.experiment import gen_jobs
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    job = dict(inputs["job"], n_epoch=n_epoch, rounds=rounds)
+
+    def argv(tag):
+        return [sys.executable, "-m", "active_learning_tpu_torch",
+                *gen_jobs.run_argv(job), "--pretrained_root",
+                inputs["pretrained_root"], "--exp_hash", "resume",
+                "--log_dir", os.path.join(root, tag, "logs"),
+                "--ckpt_path", os.path.join(root, tag, "ckpt")]
+
+    def finish(proc, what):
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                                 f"{err[-4000:]}")
+        return err
+
+    res = {}
+    t0 = time.perf_counter()
+    finish(subprocess.Popen(argv("unbroken"), cwd=repo, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+           "the unbroken CIFAR run")
+    res["unbroken_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    logs = os.path.join(root, "killed", "logs")
+    proc = subprocess.Popen(argv("killed") + ["--fault_spec",
+                                              "dispatch:delay@0.05"],
+                            cwd=repo, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError("the CIFAR child ended before the "
+                                     "signal:\n" + proc.communicate()[1][-4000:])
+            jr = _journal(logs)
+            if jr.get("round") == 1 and jr.get("phase") == "init":
+                break
+            time.sleep(0.02)
+        else:
+            raise AssertionError("the CIFAR child never reached round 1's "
+                                 "fit")
+        time.sleep(0.5)  # into the fit
+        proc.send_signal(signal.SIGTERM)
+        err = finish(proc, "the SIGTERM'd CIFAR run")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    res["killed_s"] = time.perf_counter() - t0
+    jr = _journal(logs)
+    if jr.get("status") != "preempted" or jr.get("round") != 1 or \
+            jr.get("signal") != int(signal.SIGTERM):
+        raise AssertionError(f"journal after SIGTERM: {jr}")
+    res["preempted_at"] = [ln for ln in err.splitlines()
+                           if "Validation performance on round 1" in ln]
+
+    t0 = time.perf_counter()
+    err = finish(subprocess.Popen(argv("killed") + ["--resume_training"],
+                                  cwd=repo, text=True,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE),
+                 "the resumed CIFAR run")
+    res["resumed_s"] = time.perf_counter() - t0
+    resumed_from = [ln.strip() for ln in err.splitlines()
+                    if "Resuming round 1 training from epoch" in ln]
+    if not resumed_from:
+        raise AssertionError("the resumed run did not consume round 1's "
+                             "fit state")
+    res["resumed_from"] = resumed_from[0]
+    launches = _cli_launches(err)
+    res["launches"] = launches
+    for k in ("bn_act", "bn_act_bwd", "fused_sgd"):
+        if launches[k] < 1:
+            raise AssertionError(f"the resumed CIFAR run never launched "
+                                 f"{k}: {launches}")
+    if _journal(logs).get("status") != "finished":
+        raise AssertionError(f"journal after resume: {_journal(logs)}")
+    dirs = {tag: os.path.join(root, tag, "ckpt",
+                              f"{job['exp_name']}_resume")
+            for tag in ("unbroken", "killed")}
+    with np.load(os.path.join(dirs["unbroken"], "experiment_state.npz")) as a, \
+            np.load(os.path.join(dirs["killed"],
+                                 "experiment_state.npz")) as b:
+        if sorted(a.files) != sorted(b.files) or any(
+                not np.array_equal(a[k], b[k]) for k in a.files):
+            raise AssertionError("experiment_state.npz differs after the "
+                                 "SIGTERM resume")
+        res["labeled"] = int(b["labeled"].sum())
+    with open(os.path.join(dirs["unbroken"], "best_rd_1.msgpack"), "rb") as a, \
+            open(os.path.join(dirs["killed"], "best_rd_1.msgpack"),
+                 "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("best_rd_1.msgpack differs after the "
+                                 "SIGTERM resume")
+    log(f"21.2 CIFAR job SIGTERM'd in round 1 ({res['preempted_at']}), "
+        f"resumed ({res['resumed_from']}): experiment_state.npz and "
+        f"best_rd_1.msgpack bit-identical; unbroken {res['unbroken_s']:.1f}"
+        f" s, killed {res['killed_s']:.1f} s, resumed "
+        f"{res['resumed_s']:.1f} s; launches {launches}")
+    return res
+
+
+def run_torn_write(root: str, want: dict):
+    """21.3: the synthetic CLI (phase 5's flags: SSLResNet18, BatchNorm
+    in training mode) with ``--fault_spec ckpt_write:torn@1``: the torn
+    publish is retried and the run completes (or, crashed, resumes
+    fault-free) with ``experiment_state.npz`` equal to phase 5's unbroken
+    run's."""
+    try:
+        run = _run_cli(os.path.join(root, "torn"),
+                       ["--fault_spec", "ckpt_write:torn@1"])
+        mode = "completed"
+    except AssertionError:
+        run = _run_cli(os.path.join(root, "torn"), ["--resume_training"])
+        mode = "resumed"
+    if "fault injection ARMED: ckpt_write:torn@1" not in run["stderr"] \
+            and mode == "completed":
+        raise AssertionError("the torn-write run was not armed")
+    if mode == "completed" and "retry[ckpt_write]" not in run["stderr"]:
+        raise AssertionError("the torn write never fired a retry")
+    state = run["state"]
+    if sorted(state) != sorted(want) or any(
+            not np.array_equal(state[k], want[k]) for k in want):
+        raise AssertionError("experiment_state.npz differs after the torn "
+                             "write")
+    log(f"21.3 torn write: {mode}, experiment_state.npz equals phase 5's; "
+        f"{run['wall_s']:.1f} s")
+    return {"mode": mode, "wall_s": run["wall_s"],
+            "launches": run["launches"]}
+
+
+_OOM_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import chip_smoke as cs
+from active_learning_tpu_torch.config import ExperimentConfig
+from active_learning_tpu_torch.data.pipeline import gather_batch
+from active_learning_tpu_torch.experiment.arg_pools import get_train_config
+from active_learning_tpu_torch.experiment.driver import run_experiment
+from active_learning_tpu_torch.models.factory import get_network
+from active_learning_tpu_torch.train.trainer import Trainer
+
+dev = torch.device("cuda", 0)
+data = cs._facsimile_224({n_train}, 64, num_classes=1000)
+cfg = get_train_config("default", "imagenet")
+peaks = {{}}
+model = get_network("imagenet", "SSLResNet50", num_classes=1000, device=dev)
+trainer = Trainer(model, cfg, 1000, dev)
+model.train()
+weights = torch.ones(1000, device=dev)
+gen = torch.Generator(device=dev).manual_seed(0)
+for bs in (64, 128):
+    batch = trainer.to_device(gather_batch(data[0], np.arange(bs), bs))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(batch, 0.1, weights, data[0].view, gen)
+    torch.cuda.synchronize()
+    peaks[bs] = (torch.cuda.max_memory_allocated(),
+                 torch.cuda.max_memory_reserved())
+    del batch
+del model, trainer
+torch.cuda.empty_cache()
+total = torch.cuda.get_device_properties(0).total_memory
+limit = (peaks[64][1] + peaks[128][1]) // 2
+torch.cuda.set_per_process_memory_fraction(limit / total, 0)
+print("OOM_SETUP " + json.dumps({{"peaks": peaks, "limit": limit,
+                                  "total": total}}), flush=True)
+run_experiment(ExperimentConfig(
+    dataset="imagenet", model="SSLResNet50", arg_pool="default",
+    strategy="MarginSampler", rounds=2, round_budget={budget},
+    n_epoch=1, early_stop_patience=1, exp_hash="oom",
+    log_dir={logs!r}, ckpt_path={ckpt!r}), data=data)
+print("OOM_DONE", flush=True)
+"""
+
+
+def run_oom_ladder(root: str, n_train: int = 512, budget: int = 256):
+    """21.4: a real CUDA OOM reaches ``batch_half``.  A child measures
+    the peak device memory of one SSLResNet50 B = 64 and one B = 128
+    train step (224 px, bf16, 1000 classes), caps its own process at
+    the midpoint of the two (``torch.cuda.set_per_process_memory_fraction``),
+    then runs ``run_experiment`` (MarginSampler, 2 rounds of ``budget``
+    rows, 1 epoch each): each round's B = 128 step fails with
+    ``torch.OutOfMemoryError``, the ladder halves the batch and the
+    round completes; the next round starts at B = 128 again."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    logs, ckpt = os.path.join(root, "oom", "logs"), os.path.join(root, "oom",
+                                                                  "ckpt")
+    code = _OOM_CHILD.format(repo=repo, n_train=n_train, budget=budget,
+                             logs=logs, ckpt=ckpt)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0 or "OOM_DONE" not in run.stdout:
+        raise AssertionError(f"the OOM child exited {run.returncode}:\n"
+                             f"{run.stderr[-4000:]}")
+    setup = json.loads([ln for ln in run.stdout.splitlines()
+                        if ln.startswith("OOM_SETUP ")][0][10:])
+    err = run.stderr
+    engaged = err.count("engaging rung 'batch_half'")
+    halved = err.count("train batch halved to 64")
+    reverted = err.count("reverted ['batch_half'] at the round boundary")
+    ooms = [ln for ln in err.splitlines() if "OutOfMemoryError" in ln]
+    jr = _journal(logs)
+    if engaged != 2 or halved != 2 or reverted != 1 or not ooms:
+        raise AssertionError(f"batch_half engaged {engaged}, halved to 64 "
+                             f"{halved}, reverted {reverted}, OOM lines "
+                             f"{len(ooms)}:\n{err[-4000:]}")
+    if jr.get("status") != "finished" or jr.get("degrade") != ["batch_half"]:
+        raise AssertionError(f"journal after the OOM run: {jr}")
+    with open(os.path.join(logs, "metrics.jsonl")) as fh:
+        tested = {e["step"] for e in map(json.loads, fh)
+                  if e["kind"] == "metric"
+                  and "rd_test_accuracy" in e["metrics"]}
+    if tested != {0, 1}:
+        raise AssertionError(f"rounds tested after the OOM: {tested}")
+    out = {"wall_s": wall, "peaks": setup["peaks"], "limit": setup["limit"],
+           "total": setup["total"], "launches": _cli_launches(err),
+           "oom_line": ooms[0][:300]}
+    log(f"21.4 OOM: peaks (allocated, reserved) {setup['peaks']}, cap "
+        f"{setup['limit']} of {setup['total']} bytes; batch_half engaged "
+        f"in both rounds, reverted between them; {wall:.1f} s")
+    return out
+
+
+def run_resume_faults(root: str, dev, cifar_inputs: dict, cli_state: dict):
+    """Phase 21: resume and faults on the card."""
+    t0 = time.perf_counter()
+    res = {"fit": run_fit_resume(dev, os.path.join(root, "fit"))}
+    torch.cuda.empty_cache()
+    res["cifar"] = run_cifar_preempt(os.path.join(root, "cifar"),
+                                     cifar_inputs)
+    res["torn"] = run_torn_write(os.path.join(root, "torn"), cli_state)
+    res["oom"] = run_oom_ladder(os.path.join(root, "oom"))
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 21: {res['wall_s']:.1f} s")
+    return res
 
 
 def _unmeasured(entry: dict, where: str = "") -> list:
@@ -5260,6 +5682,7 @@ def main() -> int:
     fit = run_fit_path(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         cli_run = run_cli_path(tmp)
+    cli_state = cli_run.pop("state")
     f32_step = check_train_step_f32_against_cpu()
 
     # 7. The geometry samplers' kernels against their plain versions.
@@ -5349,8 +5772,12 @@ def main() -> int:
 
     # 20. The CIFAR-10 fine-tuning sweep: kernel B' held and timed, the
     # imbalanced CIFAR job through the CLI, the cache repair.
+    # 21. Resume and faults on the card, on phase 20's rows.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cifar_") as tmp:
         cifar, cifar_detail = run_cifar_finetune(tmp, dev)
+        torch.cuda.empty_cache()
+        resume = run_resume_faults(os.path.join(tmp, "resume"), dev,
+                                   cifar.pop("inputs"), cli_state)
     detail.extend(cifar_detail)
 
     def total(runs):
@@ -5369,7 +5796,11 @@ def main() -> int:
              "s2d_experiment": s2d["experiment"]["launches"],
              "s2d_serve": s2d["serve"]["launches"],
              "dp_experiment": dp["launches"],
-             "cifar_finetune": cifar["launches"]}
+             "cifar_finetune": cifar["launches"],
+             "resume_fit": resume["fit"]["launches"],
+             "resume_cifar": resume["cifar"]["launches"],
+             "torn_write": resume["torn"]["launches"],
+             "oom_ladder": resume["oom"]["launches"]}
 
     def count(*names):
         by = {p: sum(v[n] for n in names) for p, v in paths.items()}
@@ -5471,7 +5902,7 @@ def main() -> int:
                        "samplers": {"balancing": balancing, "vaal": vaal,
                                     "cli": cli_smp},
                        "s2d": s2d, "dp": dp, "nccl": nccl,
-                       "cifar_finetune": cifar,
+                       "cifar_finetune": cifar, "resume_faults": resume,
                        "checks": detail}, fh, indent=1, default=str)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -147,14 +147,30 @@ def test_without_a_card_the_cli_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume_training"], ["--round_pipeline", "speculative"],
+    ["--metrics_backend", "csv"], ["--round_pipeline", "speculative"],
     ["--dataset", "imagenet"], ["--feed_workers", "4"],
-    ["--fault_spec", "kill@1"], ["--pool_sharding", "row"]])
+    ["--resident_scoring_bytes", "0"], ["--pool_sharding", "row"]])
 def test_flags_not_ported_exit_2_naming_the_roadmap(flags, capsys):
     # argparse keeps the last value of a repeated flag.
     assert port_main.main(CLI_FLAGS + ["--device", "cpu"] + flags) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err or "has no entry" in err
+
+
+@pytest.mark.parametrize("spec", ["kill@1", "ckpt_write:explode",
+                                  "nosuch:raise@1"])
+def test_malformed_fault_spec_fails_fast(spec, capsys):
+    """As the JAX package's parse_spec does: a spec that would arm
+    nothing exits 2 before anything runs."""
+    assert port_main.main(CLI_FLAGS + ["--device", "cpu", "--fault_spec",
+                                       spec]) == 2
+    assert "--fault_spec" in capsys.readouterr().err
+
+
+def test_recovery_flags_on_more_than_one_rank_exit_2(capsys):
+    assert port_main.main(CLI_FLAGS + ["--device", "cpu", "--num_devices",
+                                       "2", "--resume_training"]) == 2
+    assert "ROADMAP.md" in capsys.readouterr().err
 
 
 def test_cli_stem_s2d_runs_and_echoes_on_cpu(tmp_path):
