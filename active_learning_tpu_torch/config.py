@@ -5,8 +5,11 @@
 names and defaults for every field the port reads; ``ExperimentConfig``
 keeps the CLI-facing fields of the training slice.  Fields of the JAX
 package that steer paths the port does not carry yet (device-resident
-feeds, the disk tier, multi-host, profiling, fault injection) are left
-out rather than carried as dead knobs.  The mesh fields (``num_devices``,
+feeds, the disk tier, profiling) are left out rather than carried as
+dead knobs; the host feed's and the decode caches' fields
+(``train_feed``, ``feed_workers``, ``cache_eval_bytes``,
+``cache_decoded_bytes``, ``decoded_cache_dir``) keep the JAX package's
+names and defaults.  The mesh fields (``num_devices``,
 ``grad_allreduce``, ``scale_batch`` and the multi-host rendezvous) and
 the recovery fields (``resume_training``, ``fault_spec``,
 ``TrainConfig.current_ckpt_every``) keep the JAX package's names and
@@ -140,6 +143,25 @@ class TrainConfig:
     # mid-round fit state (``Trainer.fit``); a preemption also saves the
     # fit state at the epoch it lands in.
     current_ckpt_every: int = 25
+    # The train feed: "auto" or "host" (the prefetched host leg when
+    # feed_workers or loader_tr.prefetch allow it, else the serial one;
+    # always serial under a batch_hook).  The JAX package's "resident"
+    # leg is not ported (ROADMAP.md queue 1 item 5), so "auto" takes the
+    # host legs.  Every leg yields the same batch stream.
+    train_feed: str = "auto"
+    # Gather/decode worker threads of the host train feed; None defers to
+    # loader_tr.num_workers.  The device prefetch depth is
+    # loader_tr.prefetch.
+    feed_workers: Optional[int] = None
+    # Decode each disk-backed eval row once a round (the val view is
+    # deterministic), up to cache_eval_bytes of RAM; 0 turns it off.
+    cache_eval_bytes: int = 4 << 30
+    # The experiment-lifetime decode-once memmap of the whole
+    # deterministic pool view (al scoring + the test set,
+    # data/cache.DecodedPoolCache), applied only when the whole pool fits
+    # the byte budget.  dir None -> ~/.cache/al_tpu_decoded.
+    cache_decoded_bytes: int = 32 << 30
+    decoded_cache_dir: Optional[str] = None
 
     @property
     def has_pretrained(self) -> bool:
@@ -220,6 +242,10 @@ class ExperimentConfig:
     # train batch by the rank count (the arg pool's batch becomes per
     # rank), scales lr linearly and raises the cosine warmup to 5 epochs.
     scale_batch: Optional[str] = None
+    # Overrides of TrainConfig.train_feed ("auto"/"host") and
+    # TrainConfig.feed_workers.
+    train_feed: Optional[str] = None
+    feed_workers: Optional[int] = None
 
     # Coreset / BADGE scale controls (the reference's parser.py:74-79):
     # caps on the labeled and unlabeled rows a selection runs over (the

@@ -1,12 +1,14 @@
 """Data layer: dataset registry + triple factory (the JAX package's
-``data/__init__.py``).  The port carries the synthetic dataset, CIFAR-10
-and the class-imbalanced CIFAR-10 and synthetic sets; the ImageNet
-loaders are still to be ported (ROADMAP.md)."""
+``data/__init__.py``): the synthetic dataset, CIFAR-10, the
+class-imbalanced CIFAR-10 and synthetic sets, and the disk-backed
+ImageNet and ImageNet-LT sets (their decoder's route follows the
+``device`` keyword the driver passes)."""
 
 from ..registry import DATASETS
 
 # Importing a dataset module registers it.
 from . import cifar10 as _cifar10  # noqa: F401
+from . import imagenet as _imagenet  # noqa: F401
 from . import imbalance as _imbalance  # noqa: F401
 from . import synthetic as _synthetic  # noqa: F401
 

@@ -9,7 +9,9 @@ package's.  Every batch carries the pool indices of its rows.  With
 ``s2d=True`` the rows leave the host in the space-to-depth layout of the
 s2d stem (``space_to_depth``), the same bytes re-laid.  With ``rows``
 (a slice of the fixed-shape batch) only those rows are gathered: one
-rank's share of a global batch.
+rank's share of a global batch.  ``train_feed_batches`` is the
+prefetched train feed: the same batches, gathered by worker threads and
+put on the device ahead of their step.
 """
 
 from __future__ import annotations
@@ -86,6 +88,36 @@ def gather_batch(dataset: Dataset, batch_idxs: np.ndarray,
             "index": np.asarray(idxs, dtype=np.int32), "mask": mask}
 
 
+def ordered_map(fn, items, num_threads: int = 0, prefetch: int = 2):
+    """Yield ``fn(item)`` for each item, in order; with ``num_threads >
+    0`` worker threads compute ahead (at most ``num_threads + prefetch``
+    results in flight), and an error in a worker re-raises here, in
+    order."""
+    if num_threads <= 0:
+        for item in items:
+            yield fn(item)
+        return
+
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    executor = ThreadPoolExecutor(max_workers=num_threads,
+                                  thread_name_prefix="al-gather")
+    try:
+        pending: deque = deque()
+        it = iter(items)
+        for item in itertools.islice(it, num_threads + max(1, prefetch)):
+            pending.append(executor.submit(fn, item))
+        while pending:
+            result = pending.popleft().result()
+            nxt = next(it, None)
+            if nxt is not None:
+                pending.append(executor.submit(fn, nxt))
+            yield result
+    finally:
+        executor.shutdown(wait=False, cancel_futures=True)
+
+
 def iterate_batches(
     dataset: Dataset,
     idxs: np.ndarray,
@@ -104,31 +136,39 @@ def iterate_batches(
     out in order."""
     batches = batch_index_lists(idxs, batch_size, shuffle=shuffle, rng=rng,
                                 drop_last=drop_last)
-    if num_threads <= 0:
-        for b in batches:
-            yield gather_batch(dataset, b, batch_size, s2d, rows)
-        return
+    yield from ordered_map(
+        lambda b: gather_batch(dataset, b, batch_size, s2d, rows), batches,
+        num_threads, prefetch)
 
-    from collections import deque
-    from concurrent.futures import ThreadPoolExecutor
 
-    executor = ThreadPoolExecutor(max_workers=num_threads,
-                                  thread_name_prefix="al-gather")
-    try:
-        pending: deque = deque()
-        it = iter(batches)
-        for b in itertools.islice(it, num_threads + max(1, prefetch)):
-            pending.append(executor.submit(gather_batch, dataset, b,
-                                           batch_size, s2d, rows))
-        while pending:
-            batch = pending.popleft().result()
-            nxt = next(it, None)
-            if nxt is not None:
-                pending.append(executor.submit(gather_batch, dataset, nxt,
-                                               batch_size, s2d, rows))
-            yield batch
-    finally:
-        executor.shutdown(wait=False, cancel_futures=True)
+def train_feed_batches(
+    dataset: Dataset,
+    idxs: np.ndarray,
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    shuffle: bool = True,
+    num_workers: int = 0,
+    prefetch: int = 2,
+    s2d: bool = False,
+    rows: Optional[slice] = None,
+    put=None,
+    depth: int = 2,
+):
+    """The prefetched host train feed: ``num_workers`` gather/decode
+    threads assemble fixed-shape batches in order, and with ``put``
+    (``data/cache.device_put``) a feeder thread puts batch n+1 on the
+    device while batch n computes, ``depth`` batches deep
+    (``data/cache.device_prefetch``).  Batch membership and order are
+    exactly ``iterate_batches(shuffle=True)``'s, so the stream is the
+    serial loop's bit for bit at the same ``rng`` state: workers and
+    prefetch change the wall clock only."""
+    batches = iterate_batches(dataset, idxs, batch_size, shuffle=shuffle,
+                              rng=rng, num_threads=num_workers,
+                              prefetch=prefetch, s2d=s2d, rows=rows)
+    if put is None:
+        return batches
+    from .cache import device_prefetch
+    return device_prefetch(batches, put, depth=max(1, depth))
 
 
 def num_batches(n: int, batch_size: int, drop_last: bool = False) -> int:

@@ -22,7 +22,14 @@ imbalanced_cifar10}`` read from ``--dataset_dir`` (fetched there with
 ``--download_data``), ``--imbalance_{type,factor,seed}``, ``--debug_mode``
 and ``--pretrained_root``, onto which an arg pool's relative checkpoint
 path (``ssp_finetuning``, ``ssp_finetuning_imbalanced_cifar10_imb_*``)
-is rebased.
+is rebased.  The ImageNet sweep's too: ``--dataset {imagenet,
+imbalanced_imagenet}`` read JPEG trees under ``--dataset_dir``
+(``train/`` and ``val/`` class folders; ImageNet-LT's list files under
+``ImageNet_LT/``), decoded on the card (nvJPEG) or with ``--device cpu``
+by libjpeg, each al/test row once for the experiment's life
+(``~/.cache/al_tpu_decoded``).  ``--train_feed {auto,host}`` and
+``--feed_workers N`` steer the host train feed; ``--train_feed resident``
+exits 2, as the resident feed is not ported.
 
 ``--resume_training`` continues the saved experiment of ``--exp_name``
 / ``--exp_hash`` under ``--ckpt_path`` (and a run preempted in round 0,
@@ -57,12 +64,13 @@ UNSUPPORTED_FLAGS = {
     "--stall_deadline_s": True, "--prometheus_file": True,
     "--disable_diagnostics": False, "--watchdog_action": True,
     "--resident_scoring_bytes": True,
-    "--pool_sharding": True, "--pool_backend": True, "--train_feed": True,
-    "--feed_workers": True, "--round_pipeline": True,
+    "--pool_sharding": True, "--pool_backend": True,
+    "--round_pipeline": True,
     "--compilation_cache_dir": True,
 }
 
-PORTED_DATASETS = ("cifar10", "imbalanced_cifar10", "synthetic",
+PORTED_DATASETS = ("cifar10", "imbalanced_cifar10", "imagenet",
+                   "imbalanced_imagenet", "synthetic",
                    "imbalanced_synthetic")
 
 
@@ -149,6 +157,16 @@ def get_parser() -> argparse.ArgumentParser:
                    help="auto: train batch and lr x ranks, >=5-epoch "
                         "cosine warmup (the arg pool's batch becomes per "
                         "rank)")
+    p.add_argument("--train_feed", type=str, default=None,
+                   choices=["auto", "resident", "host"],
+                   help="train-batch feed: host (worker threads behind the "
+                        "device prefetch, or the serial loop) or auto, "
+                        "which takes the host feed until the resident feed "
+                        "is ported (resident exits 2); every feed yields "
+                        "the same batches")
+    p.add_argument("--feed_workers", type=int, default=None,
+                   help="gather/decode threads of the host train feed "
+                        "(default: the arg pool's train loader)")
     p.add_argument("--run_seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -197,6 +215,7 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
                         lr_vae=args.lr_vae,
                         lr_discriminator=args.lr_discriminator),
         grad_allreduce=args.grad_allreduce, scale_batch=args.scale_batch,
+        train_feed=args.train_feed, feed_workers=args.feed_workers,
         run_seed=args.run_seed, device=args.device,
         num_devices=args.num_devices,
         coordinator_address=args.coordinator_address,
@@ -217,6 +236,11 @@ def parse(argv: List[str]) -> ExperimentConfig:
         parser.error(f"--dataset {args.dataset} is not ported yet "
                      "(ROADMAP.md); the port carries "
                      f"{', '.join(PORTED_DATASETS)}")
+    if args.train_feed == "resident":
+        parser.error("--train_feed resident is not ported yet (ROADMAP.md "
+                     "queue 1 item 5, the device-resident pool)")
+    if args.feed_workers is not None and args.feed_workers < 0:
+        parser.error("--feed_workers must be >= 0")
     if args.strategy not in STRATEGIES.names():
         parser.error(f"--strategy {args.strategy} is not ported yet "
                      f"(ROADMAP.md); the port carries "

@@ -52,6 +52,12 @@ Crash safety (the JAX package's ``driver.py:623-681``, ``:788-950``,
     memory and asks the degradation ladder (``faults/ladder.py``) for a
     rung; the round save retries transient failures.
 
+Disk-backed datasets (``--dataset imagenet``, ``imbalanced_imagenet``)
+decode on the rank's device, and their al and test sets are wrapped in
+the decode-once memmap cache (``data/cache.maybe_wrap_decoded``, the JAX
+package's ``driver.py:250-307``) under one byte budget, by default in
+``~/.cache/al_tpu_decoded``.
+
 Left out, and queued in ROADMAP.md: resume and fault injection on more
 than one rank, profiling windows, telemetry, the pipelined round and
 streaming.
@@ -77,6 +83,7 @@ from .. import faults
 from ..config import (ExperimentConfig, LoaderConfig, OptimizerConfig,
                       SchedulerConfig, TrainConfig, config_to_dict)
 from ..data import get_data
+from ..data.cache import DecodedPoolCache, maybe_wrap_decoded
 from ..data.synthetic import get_data_synthetic
 from ..device import set_float32_precision
 from ..faults import ladder as ladder_lib
@@ -186,11 +193,12 @@ def build_experiment(cfg: ExperimentConfig,
     if train_cfg is None:
         train_cfg = arg_pools_lib.get_train_config(
             cfg.arg_pool, cfg.dataset, pretrained_root=cfg.pretrained_root)
-    # --fused_optimizer / --optim_state_dtype / --grad_allreduce beat the
-    # arg pool.
+    # --fused_optimizer / --optim_state_dtype / --grad_allreduce /
+    # --train_feed / --feed_workers beat the arg pool.
     overrides = {k: getattr(cfg, k) for k in ("fused_optimizer",
                                               "optim_state_dtype",
-                                              "grad_allreduce")
+                                              "grad_allreduce",
+                                              "train_feed", "feed_workers")
                  if getattr(cfg, k) is not None}
     if overrides:
         train_cfg = dataclasses.replace(train_cfg, **overrides)
@@ -230,11 +238,29 @@ def build_experiment(cfg: ExperimentConfig,
                 f"{wire} wire form (accuracy delta {delta} <= "
                 f"{INT8_PROBE_MAX_ACC_DELTA})")
     if data is None:
+        # A disk dataset decodes on its rank's device: nvJPEG and the
+        # crop-resize kernel on a card, libjpeg on the CPU.
         data = get_data(cfg.dataset, data_path=cfg.dataset_dir,
                         debug_mode=cfg.debug_mode,
                         imbalance_args=cfg.imbalance,
-                        download=cfg.download_data)
+                        download=cfg.download_data, device=device)
     train_set, test_set, al_set = data
+    # Disk datasets with deterministic views get the experiment-lifetime
+    # decode-once memmap cache: every round scores the pool and tests the
+    # test set, and a JPEG is decoded once, not once a round.  The default
+    # directory is under ~/.cache, not /tmp, which is often a tmpfs where
+    # a multi-GB "disk" cache would take host RAM.
+    cache_dir = (train_cfg.decoded_cache_dir
+                 or os.path.join(os.path.expanduser("~"), ".cache",
+                                 "al_tpu_decoded"))
+    budget = train_cfg.cache_decoded_bytes
+    al_set = maybe_wrap_decoded(al_set, cache_dir, budget)
+    if isinstance(al_set, DecodedPoolCache):
+        # One byte budget bounds the directory: the test set caches into
+        # what the al pool left.
+        budget -= len(al_set) * int(np.prod(al_set.image_shape))
+    if test_set is not None:
+        test_set = maybe_wrap_decoded(test_set, cache_dir, budget)
     num_classes = al_set.num_classes
     if model is None:
         # --dtype / --bn_stats_dtype / --stem beat the arg pool's

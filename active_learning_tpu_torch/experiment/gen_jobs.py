@@ -12,8 +12,9 @@ Three sweeps:
   * CIFAR-10, balanced or imbalanced (exp, factor 0.1): SSLResNet18 from
     SimCLR weights, 30 rounds x 1k, 200 epochs, patience 50.
 
-The CIFAR commands run on the port; the ImageNet ones exit 2 naming
-ROADMAP.md until its loaders are ported.  The JAX package's second
+Every command runs on the port: the ImageNet ones read a JPEG tree
+under ``dataset_dir`` (``data/imagenet.py``), with the MoCo-v2 checkpoint
+under ``--pretrained_root``.  The JAX package's second
 rendering, ``--format fleet`` (a fleet sweep spec), waits for the port's
 fleet controller and exits 2 naming ROADMAP.md.
 

@@ -54,6 +54,10 @@ from typing import Any, Dict, Optional, Tuple
 #   grad_probe  experiment/driver.run_grad_allreduce_probe: an injected
 #               failure is a broken probe, and the run degrades to the
 #               f32 sync
+#   feed_worker data/cache.device_prefetch's feeder thread (the train
+#               feed's prefetched leg and every scoring pass): a raise
+#               or a thread death re-raises at the consumer and fails
+#               the pass
 SITES = ("h2d_upload", "ckpt_write", "spec_scorer", "feed_worker",
          "shard_upload", "dispatch", "grad_probe", "wal_write",
          "stream_drain", "page_read", "fleet_journal")
@@ -63,7 +67,6 @@ SITES = ("h2d_upload", "ckpt_write", "spec_scorer", "feed_worker",
 SITES_AWAITING_A_HOME = {
     "h2d_upload": "item 5 (the device-resident pool)",
     "shard_upload": "item 7 (the row-sharded pool)",
-    "feed_worker": "item 2 (data/cache.py's device feeder)",
     "spec_scorer": "item 5 (the pipelined round)",
     "wal_write": "item 6 (streaming ingest)",
     "stream_drain": "item 6 (streaming ingest)",

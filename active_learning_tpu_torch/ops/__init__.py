@@ -9,7 +9,9 @@ norms), kernel G ``badge`` (CUDA), kernel H
 ``balancing`` (CUDA: the balancing pick), kernel I ``stem_conv``
 (CUDA: the s2d stem's weight gradient) and kernel J ``int8_sync``
 (CUDA: the int8 gradient sync's block absmax, quantize, dequantizing
-sum and reduce-scatter re-quantization).  Each wrapper counts its
+sum and reduce-scatter re-quantization), and ``crop_resize`` (CUDA: the
+crop and bilinear resize of JPEGs nvJPEG decoded on the card; it
+replaces no TPU kernel, but the host decoder's pixel loop).  Each wrapper counts its
 launches; ``kernel_launches`` reads them all, so a run can
 show which kernels its path went through."""
 
@@ -20,7 +22,8 @@ from typing import Dict
 
 def kernel_launches() -> Dict[str, int]:
     from . import (badge, balancing, bn_act, bn_train, boundary_radii,
-                   fused_sgd, int8_sync, kcenter, prob_stats, stem_conv)
+                   crop_resize, fused_sgd, int8_sync, kcenter, prob_stats,
+                   stem_conv)
     return {"prob_stats": prob_stats.launches, "bn_act": bn_act.launches,
             "bn_act_bwd": bn_act.bwd_launches,
             "bn_train_stats": bn_train.stats_launches,
@@ -40,12 +43,14 @@ def kernel_launches() -> Dict[str, int]:
             "int8_absmax": int8_sync.absmax_launches,
             "int8_quantize": int8_sync.quantize_launches,
             "int8_dequant_sum": int8_sync.dequant_launches,
-            "int8_sum_requantize": int8_sync.requantize_launches}
+            "int8_sum_requantize": int8_sync.requantize_launches,
+            "crop_resize": crop_resize.launches}
 
 
 def reset_kernel_launches() -> None:
     from . import (badge, balancing, bn_act, bn_train, boundary_radii,
-                   fused_sgd, int8_sync, kcenter, prob_stats, stem_conv)
+                   crop_resize, fused_sgd, int8_sync, kcenter, prob_stats,
+                   stem_conv)
     prob_stats.launches = 0
     bn_act.launches = 0
     bn_act.bwd_launches = 0
@@ -58,3 +63,4 @@ def reset_kernel_launches() -> None:
     balancing.kernel_launches = 0
     stem_conv.launches = 0
     int8_sync.reset_launches()
+    crop_resize.launches = 0

@@ -25,14 +25,18 @@ only that one, consume a mid-round fit state.
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import ExperimentConfig, TrainConfig
+from ..data.cache import device_prefetch, device_put
 from ..data.core import Dataset
-from ..data.pipeline import batch_index_lists, gather_batch
+from ..data.pipeline import (batch_index_lists, gather_batch, ordered_map,
+                             padded_batch_layout)
 from ..models.resnet import init_weights
 from ..models.weights import load_flax_variables
 from ..parallel import mesh as mesh_lib
@@ -73,6 +77,8 @@ class Strategy:
         self.best_perf = 0.0
         self.last_test_acc: Optional[float] = None
         self._score_steps: Dict[str, scoring.Step] = {}
+        # The last scoring pass: rows, wall seconds, rows decoded.
+        self.last_scoring: Dict[str, float] = {}
         # The per-experiment init seed: the one draw the JAX Strategy
         # makes here for its init key.  Each re-init counts up from it.
         self._init_seed = int(self.rng.integers(2 ** 31))
@@ -273,7 +279,12 @@ class Strategy:
         space-to-depth layout when ``host_s2d`` (default: the model has
         the s2d stem, JAX ``strategies/base.py:497-507``).  On N ranks
         each rank scores its rows of every batch and ``fetch`` gathers
-        the outputs, so every rank returns the whole result."""
+        the outputs, so every rank returns the whole result.  The test
+        loader's ``num_workers`` threads gather in order behind the
+        device prefetch (JAX ``strategies/scoring.py:520-590``); the
+        pass's rows, wall time and, over a decoded-pool cache, the rows
+        it had to decode, and over a disk dataset the rows its native
+        decoder handed to PIL, land in ``last_scoring`` and the log."""
         if host_s2d is None:
             host_s2d = self.trainer.host_s2d
         self.model.eval()
@@ -282,22 +293,62 @@ class Strategy:
         if reset is not None:
             reset()
         bs = self._score_batch_size()
-        dev = self.trainer.device
         mesh = self.trainer.mesh
         rows = self.trainer.local_rows(bs)
+        loader = self.train_cfg.loader_te
+        idxs = np.asarray(idxs)
+        batches = batch_index_lists(idxs, bs)
+
+        def checked_host_batches():
+            for b, batch in zip(batches, ordered_map(
+                    lambda b: gather_batch(self.al_set, b, bs, s2d=host_s2d,
+                                           rows=rows),
+                    batches, loader.num_workers, loader.prefetch)):
+                # The threads deliver in order, and this rank's rows are
+                # exactly its slice of the global layout: scores can never
+                # be matched to the wrong pool index.
+                want = padded_batch_layout(b, bs)[0]
+                if rows is not None:
+                    want = want[rows]
+                if not np.array_equal(batch["index"],
+                                      want.astype(np.int32)):
+                    raise AssertionError(
+                        "scoring rows misaligned with the global batch "
+                        "layout")
+                yield {"image": batch["image"]}
+
+        decoded0 = getattr(self.al_set, "decoded_rows", None)
+        fallback0 = getattr(self.al_set, "fallback_rows", None)
+        t0 = time.perf_counter()
         parts: Dict[str, list] = {}
-        batches = batch_index_lists(np.asarray(idxs), bs)
-        for b in batches:
-            batch = gather_batch(self.al_set, b, bs, s2d=host_s2d, rows=rows)
-            out = step(self.model,
-                       {"image": torch.from_numpy(batch["image"]).to(dev)})
-            for k, v in out.items():
-                if keys is None or k in keys:
-                    if v.is_floating_point():
-                        v = v.to(torch.float32)
-                    if rows is None:
-                        v = v[:len(b)]
-                    parts.setdefault(k, []).append(v.cpu().numpy())
+        # The gather and the copy of batch n+1 overlap batch n's step.
+        with contextlib.closing(device_prefetch(
+                checked_host_batches(),
+                device_put(self.trainer.device))) as feed:
+            for b, item in zip(batches, feed):
+                out = step(self.model, item.wait())
+                for k, v in out.items():
+                    if keys is None or k in keys:
+                        if v.is_floating_point():
+                            v = v.to(torch.float32)
+                        if rows is None:
+                            v = v[:len(b)]
+                        parts.setdefault(k, []).append(v.cpu().numpy())
+        wall = time.perf_counter() - t0
+        self.last_scoring = {"rows": len(idxs), "wall_s": wall}
+        note = ""
+        if decoded0 is not None:
+            self.last_scoring["decoded_rows"] = (self.al_set.decoded_rows
+                                                 - decoded0)
+            note = f"; {self.last_scoring['decoded_rows']} rows decoded"
+        if fallback0 is not None:
+            self.last_scoring["fallback_rows"] = (self.al_set.fallback_rows
+                                                  - fallback0)
+            note += (f"; {self.last_scoring['fallback_rows']} rows "
+                     "through the PIL fallback")
+        self.logger.info(
+            f"Scoring pass ({kind}): {len(idxs)} rows in {wall:.3f} s "
+            f"({len(idxs) / max(wall, 1e-9):.1f} rows/s){note}")
         if rows is None:
             return {k: np.concatenate(v) for k, v in parts.items()}
         out = {}

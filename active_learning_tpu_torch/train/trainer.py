@@ -56,7 +56,26 @@ another (the generator's state differs in kind): that raises.  Every
 checkpoint write retries transient failures (``faults.RetryPolicy``),
 and every train step passes the ``dispatch`` fault site.
 
-Not ported yet (ROADMAP.md): the device-resident and epoch-scan feeds.
+The train feed (JAX ``trainer.py:654-835``, ``:1320-1360``), resolved
+once a fit (``resolve_train_feed``): ``host_prefetch`` gathers and
+decodes batches on ``feed_workers`` threads and puts each on the device
+ahead of its step from a feeder thread (``data/pipeline.
+train_feed_batches`` with ``data/cache.device_put``); ``host_serial``
+gathers, copies and steps one batch at a time (always under a
+``batch_hook``).  Both yield the same batch stream, and the flip is drawn
+from the fit's generator after the copy, so the prefetch never moves it.
+Each epoch records the time the loop waited on the feed:
+``feed_stall_frac`` (its share of the epoch's train wall) and
+``host_wait_ms_p50`` (the median wait a batch), in ``last_feed`` and
+the metrics; over a disk-backed train set ``last_feed`` also counts the
+fit's rows that the native decoder handed to PIL (``fallback_rows``).
+A disk-backed train set
+advances its crop stream with ``set_epoch(round · (n_epoch + 1) +
+epoch)``; disk-backed eval rows are decoded once a round
+(``data/cache.CachedEvalRows``) when early stopping is on.
+
+Not ported yet (ROADMAP.md queue 1 item 5): the device-resident and
+epoch-scan feeds; under ``train_feed="auto"`` the host legs run.
 """
 
 from __future__ import annotations
@@ -64,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,8 +92,9 @@ import torch
 from .. import faults
 from ..config import TrainConfig
 from ..data.augment import apply_view
+from ..data.cache import CachedEvalRows, DecodedPoolCache, device_put
 from ..data.core import Dataset
-from ..data.pipeline import iterate_batches
+from ..data.pipeline import iterate_batches, train_feed_batches
 from ..device import resolve_device
 from ..faults import preempt as preempt_lib
 from ..models.resnet import set_sync_group
@@ -164,6 +185,8 @@ class Trainer:
         self.params = list(model.parameters())
         self.optimizer = make_optimizer(train_cfg)
         self.optimizer.init(self.params)
+        # The last fit's feed: its leg and the last epoch's stall figures.
+        self.last_feed: Dict[str, object] = {"source": None}
 
     # -- setup -----------------------------------------------------------
 
@@ -205,6 +228,49 @@ class Trainer:
         weights[uniq] = counts.sum() / counts
         weights /= weights.sum()
         return weights.astype(np.float32)
+
+    def resolve_train_feed(self, batch_hook=None) -> str:
+        """The train feed of a whole fit: ``host_prefetch`` (worker
+        threads behind the device prefetch) when ``feed_workers`` or
+        ``loader_tr.prefetch`` allow it and no ``batch_hook`` runs, else
+        ``host_serial``.  ``train_feed`` "resident" is the JAX package's
+        device-resident leg, not ported: it raises."""
+        mode = self.cfg.train_feed or "auto"
+        if mode == "resident":
+            raise NotImplementedError(
+                "train_feed='resident' is not ported yet (ROADMAP.md queue "
+                "1 item 5)")
+        if mode not in ("auto", "host"):
+            raise ValueError(f"train_feed={mode!r} is not one of 'auto'/"
+                             "'host'")
+        prefetched = batch_hook is None and (
+            self._feed_workers() > 0 or self.cfg.loader_tr.prefetch > 0)
+        return "host_prefetch" if prefetched else "host_serial"
+
+    def _feed_workers(self) -> int:
+        """Gather/decode threads of the host train feed:
+        ``feed_workers``, or the train loader's ``num_workers``."""
+        if self.cfg.feed_workers is not None:
+            return int(self.cfg.feed_workers)
+        return int(self.cfg.loader_tr.num_workers)
+
+    def _record_feed(self, host_waits: List[float], train_wall: float,
+                     metric_cb, step: int) -> None:
+        """The epoch's ``feed_stall_frac`` (time blocked on the feed over
+        the epoch's train wall) and ``host_wait_ms_p50`` (the median wait
+        a batch), in ``last_feed`` and the metrics (not in the history,
+        which a resumed fit reproduces bit for bit)."""
+        if host_waits and train_wall > 0:
+            stall = min(1.0, sum(host_waits) / train_wall)
+            p50_ms = float(np.percentile(host_waits, 50)) * 1000.0
+        else:
+            stall, p50_ms = 0.0, 0.0
+        feed = {"feed_stall_frac": round(stall, 4),
+                "host_wait_ms_p50": round(p50_ms, 3)}
+        self.last_feed.update(feed)
+        if metric_cb is not None:
+            for name, value in feed.items():
+                metric_cb(name, value, step)
 
     def reinit_optimizer(self) -> None:
         """A fresh optimizer for the round: the momentum buffers are
@@ -359,6 +425,19 @@ class Trainer:
         ``resume_fit_state`` continues from this round's fit state when
         one is on disk; without it a stale one is discarded."""
         use_es = es_patience != 0 and len(eval_idxs) > 0
+        if (use_es and self.cfg.cache_eval_bytes > 0
+                and hasattr(al_set, "paths") and not al_set.train_transform
+                and not isinstance(al_set, DecodedPoolCache)):
+            # Disk-backed eval rows decode the same every epoch: once a
+            # round here, unless the pool's memmap cache already has them.
+            al_set = CachedEvalRows(al_set,
+                                    max_bytes=self.cfg.cache_eval_bytes)
+        feed = self.resolve_train_feed(batch_hook)
+        self.last_feed = {"source": feed, "feed_stall_frac": None,
+                          "host_wait_ms_p50": None}
+        fallback0 = getattr(train_set, "fallback_rows", None)
+        put = device_put(self.device) if feed == "host_prefetch" else None
+        workers = self._feed_workers()
         labels = train_set.targets[labeled_idxs]
         class_weights = torch.from_numpy(
             self.class_weights(labels)).to(self.device)
@@ -420,18 +499,33 @@ class Trainer:
         epochs_run = start_epoch - 1
         for epoch in range(start_epoch, n_epoch + 1):
             epochs_run = epoch
+            if hasattr(train_set, "set_epoch"):
+                # A disk dataset's crops are a function of (seed, epoch,
+                # index); the round is folded in so that rounds do not
+                # replay one augmentation sequence.
+                train_set.set_epoch(round_idx * (n_epoch + 1) + epoch)
             lr = float(np.float32(self.lr_at(epoch - 1)))
             losses, gnorms = [], []
-            # closing(): a failed step shuts the gather threads down now,
-            # not when the traceback is collected.
-            with contextlib.closing(iterate_batches(
-                    train_set, labeled_idxs, bs, shuffle=True, rng=rng,
-                    num_threads=self.cfg.loader_tr.num_workers,
+            host_waits: List[float] = []
+            t_epoch0 = time.perf_counter()
+            # closing(): a failed step shuts the gather and feeder
+            # threads down now, not when the traceback is collected.
+            with contextlib.closing(train_feed_batches(
+                    train_set, labeled_idxs, bs, rng=rng, shuffle=True,
+                    num_workers=workers,
                     prefetch=self.cfg.loader_tr.prefetch,
-                    s2d=self.host_s2d and batch_hook is None,
-                    rows=rows)) as batches:
-                for batch in batches:
-                    dev_batch = self.to_device(batch)
+                    s2d=self.host_s2d and batch_hook is None, rows=rows,
+                    put=put, depth=self.cfg.loader_tr.prefetch)) as batches:
+                while True:
+                    t_wait = time.perf_counter()
+                    item = next(batches, None)
+                    if item is None:
+                        break
+                    # Blocked on the feed: the gather on the serial leg,
+                    # the queue on the prefetched one.
+                    host_waits.append(time.perf_counter() - t_wait)
+                    dev_batch = (item.wait() if put is not None
+                                 else self.to_device(item))
                     loss, gnorm = self.train_step(
                         dev_batch, lr, class_weights, train_set.view,
                         generator, None if rows is None else (bs, rows))
@@ -440,6 +534,7 @@ class Trainer:
                     gnorms.append(gnorm)
                     if batch_hook is not None:
                         batch_hook(epoch, dev_batch)
+            train_wall = time.perf_counter() - t_epoch0
             train_loss = 0.0
             if losses:
                 # Each rank holds its share of every step's loss.
@@ -447,6 +542,11 @@ class Trainer:
             record = {"epoch": epoch, "lr": lr, "train_loss": train_loss,
                       "grad_norm": (torch.stack(gnorms).mean()
                                     if gnorms else 0.0)}
+            self._record_feed(host_waits, train_wall, metric_cb,
+                              round_idx * (n_epoch + 1) + epoch)
+            if fallback0 is not None:
+                self.last_feed["fallback_rows"] = (train_set.fallback_rows
+                                                   - fallback0)
             if use_es:
                 perf = self.evaluate(al_set, eval_idxs)
                 eval_acc = float(perf["accuracy"])

@@ -4,8 +4,9 @@
 
 Drives the port's serving, training and acquisition paths, the s2d
 stem through all three, data-parallel training on two ranks, the
-CIFAR-10 fine-tuning sweep and crash-safe rounds
-(``active_learning_tpu_torch``), on the card,
+CIFAR-10 fine-tuning sweep, crash-safe rounds and the ImageNet
+linear-evaluation job on a JPEG tree (``active_learning_tpu_torch``), on
+the card,
 through the entry points a user calls, and fails (non-zero exit) if any
 phase fails:
 
@@ -238,6 +239,31 @@ phase fails:
     2 rounds: a real ``torch.OutOfMemoryError`` engages ``batch_half``
     in each round, the next round starts at B = 128 again, both rounds
     tested.
+22. The paper's ImageNet linear-evaluation job: a 1,000-class tree of
+    13 training and 2 validation JPEGs a class, hard links to the
+    committed fixture (``tests/fixtures/imagenet_jpeg``: ImageNet's
+    shapes and sizes), three training files CMYK JPEGs and three PNGs
+    (the per-file fallback through PIL), and a seeded MoCo-v2-layout
+    ResNet-50 checkpoint; ``gen_jobs``' PartitionedCoresetSampler
+    command (SSLResNet50, 1000 classes, 224 px, bf16, frozen features,
+    10 partitions, ``--feed_workers 8``) through ``python -m
+    active_learning_tpu_torch``, rows cut to a tenth (subsets 5,000 +
+    8,000, initial pool 3,000, budget 1,000), 1 epoch, 3 rounds, the
+    decoded-pool cache under the phase's own HOME: exit 0, the
+    checkpoint overlaid each round, every round tested, kernels B, D, E
+    and K launched, round 1's scoring pass decoding and round 2's served
+    by the cache (no row decoded), the passes' rows through the PIL
+    fallback exactly the six planted files.  Then: 256 cached rows equal
+    a fresh gather bit for bit; ``gather`` alone timed at 1, 4, 8 and
+    ``nproc`` decode threads, its PIL rows exactly the planted files
+    among its rows; kernel K (``ops/crop_resize``, CUDA: the crop and
+    bilinear resize after nvJPEG) against its plain version on 125
+    decoded training files at the val and train views' boxes, bit for
+    bit, timed beside it and its bytes bound; one epoch's batch stream
+    with 0 and 8 feed workers equal hash for hash; the fit under
+    host_serial and host_prefetch in turns, with each epoch's
+    ``feed_stall_frac`` and ``host_wait_ms_p50``.  Every number is
+    printed beside the card's name and power limit.
 
 Prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
@@ -252,9 +278,12 @@ import argparse
 import asyncio
 import base64
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
+import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -1325,13 +1354,15 @@ def _complete_events(fn, reps: int):
     has recorded none or some of its kernels, after a long profiled
     window one session lost one kernel of 20 calls, and the sessions
     right after host-time loops have lost most kernels at first), so a
-    reading is taken again, up to eight sessions; then this fails.  A
+    reading is taken again, up to sixteen sessions (eight were too few
+    once in phase 20, whose sessions came back empty, whole and partial
+    in turn); then this fails.  A
     session that recorded nothing lost all of its events and is not
     compared: late in a long run (phase 20, after phase 19's process
     group) every other session came back empty, and the ones between
     were whole and equal."""
     seen, prev = [], None
-    for _ in range(8):
+    for _ in range(16):
         events = _kernel_events(fn, reps)
         counts = {k: c for k, (c, _) in events.items()}
         if (events and counts == prev
@@ -5589,6 +5620,454 @@ def run_resume_faults(root: str, dev, cifar_inputs: dict, cli_state: dict):
     return res
 
 
+# -- phase 22: the ImageNet linear-evaluation job ------------------------------
+
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "imagenet_jpeg")
+# 1,000 classes of 13 training and 2 validation JPEGs: a tenth of the
+# protocol's rows (50,000 + 80,000 subsets of 1.28 M) would not fit the
+# run's time, so the rows are cut, never the widths.
+IMAGENET_TREE = (1000, 13, 2)
+
+
+def card_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def write_jpeg_tree(root: str, shape=IMAGENET_TREE) -> dict:
+    """``train/`` and ``val/`` ImageFolder trees of the committed fixture
+    JPEGs (ImageNet's shapes and sizes), hard-linked (or copied where the
+    file system refuses links) round robin; with PIL, three training
+    files are CMYK JPEGs and three PNGs, for the per-file fallback
+    (``planted``: their paths)."""
+    classes, n_train, n_val = shape
+    sources = sorted(os.path.join(FIXTURE_DIR, f)
+                     for f in os.listdir(FIXTURE_DIR) if f.endswith(".jpg"))
+    linked, k = 0, 0
+    for split, per in (("train", n_train), ("val", n_val)):
+        for c in range(classes):
+            cdir = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(cdir)
+            for i in range(per):
+                src = sources[k % len(sources)]
+                dst = os.path.join(cdir, f"{split}_{c}_{i}.JPEG")
+                k += 1
+                try:
+                    os.link(src, dst)
+                    linked += 1
+                except OSError:
+                    shutil.copyfile(src, dst)
+    planted = []
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        for c in range(6):
+            cdir = os.path.join(root, "train", f"n{c:08d}")
+            first = os.path.join(cdir, f"train_{c}_0.JPEG")
+            with Image.open(first) as im:
+                rgb = im.convert("RGB")
+            os.remove(first)
+            if c < 3:
+                rgb.convert("CMYK").save(first, format="JPEG", quality=90)
+            else:
+                first = os.path.join(cdir, f"train_{c}_0.png")
+                rgb.save(first)
+            planted.append(first)
+    return {"files": k, "hard_links": linked, "cmyk_or_png": len(planted),
+            "planted": planted}
+
+
+def moco_keys():
+    """torchvision's names of a ResNet-50 encoder (MoCo-v2's
+    ``module.encoder_q.*`` without the prefix), BatchNorm counters left
+    out."""
+    bn = ("weight", "bias", "running_mean", "running_var")
+    keys = ["conv1.weight"] + [f"bn1.{x}" for x in bn]
+    for s, blocks in enumerate((3, 4, 6, 3)):
+        for b in range(blocks):
+            t = f"layer{s + 1}.{b}"
+            for n in (1, 2, 3):
+                keys += [f"{t}.conv{n}.weight"] + [f"{t}.bn{n}.{x}"
+                                                   for x in bn]
+            if b == 0:
+                keys += [f"{t}.downsample.0.weight"] + [
+                    f"{t}.downsample.1.{x}" for x in bn]
+    return keys
+
+
+def write_moco_checkpoint(path: str, seed: int = SEED) -> int:
+    """A MoCo-v2-layout ResNet-50 checkpoint from a numpy seed, saved with
+    ``torch.save`` as MoCo publishes it (``{"epoch", "arch",
+    "state_dict"}``, ``module.encoder_q.*`` and the MLP head ``fc``, which
+    the arg pool skips).  Returns the number of tensors the overlay must
+    load."""
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.utils.pretrained import torch_key_to_port
+
+    shapes = {k: tuple(v.shape) for k, v in get_network(
+        "imagenet", "SSLResNet50", device="cpu").state_dict().items()}
+    rng = np.random.default_rng(seed)
+    state = {}
+    for key in moco_keys():
+        shape = shapes[torch_key_to_port(f"encoder.{key}")]
+        if len(shape) == 4:
+            v = rng.normal(0, np.sqrt(2.0 / np.prod(shape[1:])), shape)
+        elif key.endswith(("weight", "running_var")):
+            v = rng.uniform(0.8, 1.2, shape)
+        else:
+            v = rng.normal(0, 0.05, shape)
+        state[f"module.encoder_q.{key}"] = torch.from_numpy(
+            v.astype(np.float32))
+    state["module.encoder_q.fc.0.weight"] = torch.zeros(2048, 2048)
+    state["module.encoder_q.fc.2.weight"] = torch.zeros(128, 2048)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"epoch": 800, "arch": "resnet50", "state_dict": state}, path)
+    return len(moco_keys())
+
+
+def _imagenet_sets(data_dir: str, dev):
+    from active_learning_tpu_torch.data.imagenet import get_data_imagenet
+    return get_data_imagenet(data_dir, device=dev)
+
+
+def time_gather(data_dir: str, dev, planted: set, rows: int = 1024,
+                batch: int = 128):
+    """Decode rows/s of ``gather`` alone (val view: header parse, nvJPEG,
+    the crop-resize kernel, the copy back) at 1, 4, 8 and ``nproc``
+    decode threads, each on a fresh dataset (headers parsed anew) over
+    its own rows.  The files are warm in the page cache.  The rows that
+    took the PIL fallback must be exactly the planted files among
+    them."""
+    out = {}
+    threads = sorted({1, 4, 8, os.cpu_count() or 1})
+    for n, t in enumerate(threads):
+        _, _, al = _imagenet_sets(data_dir, dev)
+        al.decode_threads = t
+        idx = np.arange(n * rows, (n + 1) * rows) % len(al)
+        t0 = time.perf_counter()
+        for i in range(0, rows, batch):
+            al.gather(idx[i:i + batch])
+        wall = time.perf_counter() - t0
+        want = sum(al.paths[i] in planted for i in idx)
+        if al.fallback_rows != want:
+            raise AssertionError(
+                f"gather at {t} threads: {al.fallback_rows} rows took the "
+                f"PIL fallback, {want} planted files among them")
+        out[str(t)] = {"rows_per_s": rows / wall, "wall_s": wall,
+                       "fallback_rows": al.fallback_rows}
+    return out
+
+
+def check_crop_resize(data_dir: str, dev, detail):
+    """The crop-resize kernel against its plain version on the main
+    path's inputs: 128 training files nvJPEG decoded, at the val view's
+    boxes and at a seeded train view's; timed beside the plain version
+    and its bytes bound.  No single PyTorch call computes it."""
+    from active_learning_tpu_torch.data import native
+    from active_learning_tpu_torch.ops import crop_resize as cr
+
+    train, _, al = _imagenet_sets(data_dir, dev)
+    train.set_epoch(3)
+    idx = np.arange(0, 128 * 13, 13)
+    paths = [al.paths[i] for i in idx]
+    dims = native.jpeg_dims(paths, device=dev)
+    keep = dims[:, 0] > 0
+    paths, idx, dims = ([p for p, k in zip(paths, keep) if k], idx[keep],
+                        dims[keep])
+    buf, meta = native.nvjpeg_decode(paths, dims, 8, dev)
+    torch.cuda.synchronize()
+    worst, res = 0, {}
+    for view, ds in (("val", al), ("train", train)):
+        m = meta.copy()
+        m[:, 4:] = [ds._crop_rect(int(h), int(w), int(i))
+                    for (h, w), i in zip(dims[:, :2], idx)]
+        mt = torch.from_numpy(m)
+        got = cr.crop_resize(buf, mt, 224)
+        want = cr.crop_resize_reference(buf, mt, 224)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        worst = max(worst, err)
+        detail.append({"kernel": "crop_resize", "view": view,
+                       "images": len(m), "max_abs_err": err})
+        if err:
+            raise AssertionError(f"crop_resize {view}: max err {err}")
+        res[view] = m
+    m = torch.from_numpy(res["val"])
+    nbytes = cr.touched_bytes(res["val"], 224)
+    times = {"ms": cuda_ms(lambda: cr.crop_resize(buf, m, 224)),
+             "plain_ms": cuda_ms(
+                 lambda: cr.crop_resize_reference(buf, m, 224), reps=3,
+                 warmup=1),
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "library_ms": None,
+             "images": len(m), "bytes": nbytes}
+    return worst, times
+
+
+def _batch_hashes(batches) -> list:
+    out = []
+    for b in batches:
+        h = hashlib.sha256()
+        for k in ("image", "label", "index", "mask"):
+            h.update(np.ascontiguousarray(b[k]).tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def check_stream(data_dir: str, dev, labeled: np.ndarray, workers: int = 8):
+    """One epoch's batch stream of the train view, host side, through
+    ``train_feed_batches`` with 0 workers and with ``workers``: hash for
+    hash equal."""
+    from active_learning_tpu_torch.data.pipeline import train_feed_batches
+
+    train, _, _ = _imagenet_sets(data_dir, dev)
+    train.set_epoch(1 * (1 + 1) + 1)
+    res = {}
+    hashes = []
+    for w in (0, workers):
+        t0 = time.perf_counter()
+        hashes.append(_batch_hashes(train_feed_batches(
+            train, labeled, 128, rng=np.random.default_rng(SEED),
+            num_workers=w)))
+        res[f"workers_{w}_s"] = time.perf_counter() - t0
+    if hashes[0] != hashes[1]:
+        raise AssertionError("the batch stream differs between 0 and "
+                             f"{workers} feed workers")
+    res["batches"] = len(hashes[0])
+    return res
+
+
+def feed_legs(data_dir: str, dev, labeled: np.ndarray, pre: str,
+              workers: int = 8):
+    """The linear-evaluation fit (SSLResNet50 from the MoCo-v2
+    checkpoint, frozen features, B = 128, bf16) for one epoch over the
+    labeled rows, under host_serial and host_prefetch in turns (serial,
+    prefetch, prefetch, serial): wall, feed_stall_frac and
+    host_wait_ms_p50 of each, and the launches of the prefetched fits."""
+    from active_learning_tpu_torch import ops
+    from active_learning_tpu_torch.experiment.arg_pools import \
+        get_train_config
+    from active_learning_tpu_torch.models.factory import get_network
+    from active_learning_tpu_torch.models.resnet import init_weights
+    from active_learning_tpu_torch.train.trainer import Trainer
+    from active_learning_tpu_torch.utils.pretrained import apply_pretrained
+
+    train, _, al = _imagenet_sets(data_dir, dev)
+    base = get_train_config("ssp_linear_evaluation", "imagenet", pre)
+    legs = {"host_serial": dataclasses.replace(
+                base, train_feed="host", feed_workers=0,
+                loader_tr=dataclasses.replace(base.loader_tr, prefetch=0)),
+            "host_prefetch": dataclasses.replace(
+                base, train_feed="host", feed_workers=workers)}
+    runs = []
+    launches = None
+    for leg in ("host_serial", "host_prefetch", "host_prefetch",
+                "host_serial"):
+        model = get_network("imagenet", "SSLResNet50", device=dev,
+                            freeze_feature=True)
+        init_weights(model, torch.Generator().manual_seed(SEED))
+        apply_pretrained(model, base.pretrained)
+        trainer = Trainer(model, legs[leg], 1000, dev)
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        trainer.fit(train, labeled, al, np.zeros(0, dtype=np.int64),
+                    n_epoch=1, es_patience=0,
+                    rng=np.random.default_rng(SEED))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if trainer.last_feed["source"] != leg:
+            raise AssertionError(f"{leg}: the fit took "
+                                 f"{trainer.last_feed['source']}")
+        if leg == "host_prefetch" and launches is None:
+            launches = ops.kernel_launches()
+        runs.append({"leg": leg, "wall_s": wall,
+                     "rows_per_s": len(labeled) / wall,
+                     "feed_stall_frac": trainer.last_feed["feed_stall_frac"],
+                     "host_wait_ms_p50":
+                         trainer.last_feed["host_wait_ms_p50"],
+                     "fallback_rows": trainer.last_feed["fallback_rows"]})
+        del model, trainer
+        torch.cuda.empty_cache()
+    return runs, launches
+
+
+_SCORING = re.compile(r"Scoring pass \((\w+)\): (\d+) rows in ([\d.]+) s "
+                      r"\(([\d.]+) rows/s\); (\d+) rows decoded; (\d+) rows "
+                      r"through the PIL fallback")
+
+
+def run_imagenet_linear_eval(root: str, dev, rounds: int = 3,
+                             workers: int = 8, cli_extra=(),
+                             shape=IMAGENET_TREE,
+                             cut=(5000, 8000, 3000, 1000)):
+    """Phase 22: the paper's ImageNet linear-evaluation job
+    (``gen_jobs``' first ``linear_evaluation_imagenet_args`` command with
+    PartitionedCoresetSampler) through ``python -m
+    active_learning_tpu_torch`` on a 1,000-class JPEG tree of the
+    committed fixture, SSLResNet50 from a seeded MoCo-v2 checkpoint,
+    bf16, 10 partitions, ``--feed_workers 8``; rows cut to a tenth
+    (subsets 5,000 + 8,000, initial pool 3,000, budget 1,000), 1 epoch,
+    ``rounds`` rounds (3: round 1's scoring pass decodes, round 2's is
+    served from the decoded-pool cache).  The decoded cache lives under
+    the phase's own HOME.  Then, in this process: decode rows/s of
+    ``gather`` alone, the crop-resize kernel against its plain version,
+    the cached rows against a fresh gather (256 rows), the batch stream
+    with 0 and 8 workers, and the fit under each feed leg in turns."""
+    from active_learning_tpu_torch.data.cache import maybe_wrap_decoded
+    from active_learning_tpu_torch.experiment import gen_jobs
+    from active_learning_tpu_torch.experiment.cli import parse
+
+    smi = card_smi()
+    res = {"card": smi}
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(root, "imagenet")
+    t0 = time.perf_counter()
+    res["tree"] = write_jpeg_tree(data_dir, shape)
+    res["tree"]["write_s"] = time.perf_counter() - t0
+    planted = set(res["tree"].pop("planted"))
+    pre = os.path.join(root, "pre")
+    res["overlay_tensors"] = write_moco_checkpoint(os.path.join(
+        pre, "pretrained_ckpt", "imagenet",
+        "moco_v2_800ep_pretrain.pth.tar"))
+    log(f"phase 22 tree: {res['tree']} ({smi})")
+
+    job = next(a for a in gen_jobs.linear_evaluation_imagenet_args(data_dir)
+               if a["strategy"] == "PartitionedCoresetSampler")
+    job = dict(job, subset_labeled=cut[0], subset_unlabeled=cut[1],
+               init_pool_size=cut[2], round_budget=cut[3], rounds=rounds,
+               n_epoch=1)
+    home = os.path.join(root, "home")
+    argv = gen_jobs.run_argv(job) + [
+        "--feed_workers", str(workers), "--pretrained_root", pre,
+        "--exp_hash", "lin", "--log_dir", os.path.join(root, "logs"),
+        "--ckpt_path", os.path.join(root, "ckpt"), *cli_extra]
+    cfg = parse(argv)
+    res["command"] = " ".join([gen_jobs.CLI] + argv)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "active_learning_tpu_torch", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, HOME=home), capture_output=True, text=True,
+        timeout=900)
+    res["cli_wall_s"] = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"ImageNet CLI exited {run.returncode}:\n"
+                             f"{run.stderr[-4000:]}")
+    err = run.stderr
+    launches = _cli_launches(err)
+    res["launches"] = launches
+    for k in ("bn_act", "fused_sgd", "crop_resize"):
+        if launches[k] < 1:
+            raise AssertionError(f"the ImageNet job never launched {k}: "
+                                 f"{launches}")
+    if not any(launches[k] for k in ("kcenter_fold_select",
+                                     "kcenter_batch_pass",
+                                     "kcenter_min_fold")):
+        raise AssertionError(f"the ImageNet job never launched kernel E: "
+                             f"{launches}")
+    if err.count(f"Overlaid {res['overlay_tensors']} pretrained") != rounds:
+        raise AssertionError("the MoCo-v2 checkpoint was not overlaid "
+                             "each round")
+    # Each query's scoring passes (one a partition), by the round whose
+    # query ran them: the ones logged after round r - 1's training began.
+    passes, rd = {}, 0
+    for ln in err.splitlines():
+        if "Starting training on round " in ln:
+            rd = int(ln.rsplit(" ", 1)[1]) + 1
+        m = _SCORING.search(ln)
+        if m:
+            p = passes.setdefault(rd, {"passes": 0, "rows": 0,
+                                       "wall_s": 0.0, "decoded": 0,
+                                       "fallback": 0})
+            p["passes"] += 1
+            p["rows"] += int(m[2])
+            p["wall_s"] += float(m[3])
+            p["decoded"] += int(m[5])
+            p["fallback"] += int(m[6])
+    for p in passes.values():
+        p["rows_per_s"] = p["rows"] / max(p["wall_s"], 1e-9)
+    res["scoring_passes"] = passes
+    if sorted(passes) != list(range(1, rounds)) or not passes[1]["decoded"] \
+            or passes[rounds - 1]["decoded"]:
+        raise AssertionError(f"scoring passes {passes}: round 1's must "
+                             "decode, the last must be served by the "
+                             "decoded-pool cache")
+    # Every pool row is decoded once through the cache, so the scoring
+    # passes' PIL rows are exactly the planted files: no other file of
+    # the tree left nvJPEG.
+    fallback = sum(p["fallback"] for p in passes.values())
+    decoded = sum(p["decoded"] for p in passes.values())
+    if decoded != shape[0] * shape[1] or fallback != len(planted):
+        raise AssertionError(
+            f"scoring passes decoded {decoded} rows, {fallback} through the "
+            f"PIL fallback; the pool has {shape[0] * shape[1]} rows and "
+            f"{len(planted)} planted CMYK/PNG files")
+    res["scoring_fallback_rows"] = fallback
+    res["phase_times"] = [ln.split(" ", 2)[-1] for ln in err.splitlines()
+                          if "_time is " in ln]
+    exp_dir = os.path.join(root, "ckpt", f"{cfg.exp_name}_lin")
+    with np.load(os.path.join(exp_dir, "experiment_state.npz")) as st:
+        labeled = np.flatnonzero(st["labeled"])
+        res["labeled"] = len(labeled)
+        if int(st["n_pool"]) != shape[0] * shape[1]:
+            raise AssertionError(f"pool of {int(st['n_pool'])} rows")
+    if res["labeled"] != cut[2] + (rounds - 1) * cut[3]:
+        raise AssertionError(f"{res['labeled']} rows labeled")
+    tested = {}
+    with open(os.path.join(root, "logs", "metrics.jsonl")) as fh:
+        for ln in fh:
+            e = json.loads(ln)
+            if e["kind"] == "metric" and "rd_test_accuracy" in e["metrics"]:
+                tested[e["step"]] = e["metrics"]["rd_test_accuracy"]
+    if set(tested) != set(range(rounds)) or not all(
+            np.isfinite(v) for v in tested.values()):
+        raise AssertionError(f"rounds tested: {tested}")
+    res["test_accuracy"] = tested
+    cache_dir = os.path.join(home, ".cache", "al_tpu_decoded")
+    res["cache_bytes"] = {f: os.stat(os.path.join(cache_dir, f)).st_blocks
+                          * 512 for f in os.listdir(cache_dir)
+                          if f.endswith(".u8")}
+    log(f"phase 22 CLI: {res['cli_wall_s']:.1f} s, launches {launches}, "
+        f"scoring passes {passes}, phases {res['phase_times']}, cache "
+        f"bytes {res['cache_bytes']} ({smi})")
+
+    # The cached rows against a fresh gather of the same indices.
+    _, _, al = _imagenet_sets(data_dir, dev)
+    cached = maybe_wrap_decoded(al, cache_dir, 1 << 40)
+    sample = np.sort(np.random.default_rng(SEED).choice(
+        len(al), min(256, len(al)), replace=False))
+    if not np.array_equal(cached.gather(sample), al.gather(sample)) \
+            or cached.decoded_rows != 0:
+        raise AssertionError("the decoded-pool cache's rows differ from a "
+                             "fresh gather")
+    res["cache_rows_checked"] = len(sample)
+
+    res["gather"] = time_gather(data_dir, dev, planted)
+    log(f"phase 22 gather alone (rows/s by decode threads): "
+        f"{ {t: round(v['rows_per_s'], 1) for t, v in res['gather'].items()} }"
+        f"; rows through the PIL fallback: "
+        f"{ {t: v['fallback_rows'] for t, v in res['gather'].items()} } "
+        f"(the planted files among them) ({smi})")
+    detail = []
+    res["crop_resize_err"], res["crop_resize_times"] = check_crop_resize(
+        data_dir, dev, detail)
+    labeled = labeled[np.random.default_rng(SEED).permutation(
+        len(labeled))][:cut[2]]
+    res["stream"] = check_stream(data_dir, dev, labeled, workers)
+    res["feed_legs"], res["feed_launches"] = feed_legs(
+        data_dir, dev, labeled, pre, workers)
+    log(f"phase 22 feed legs (1 epoch, {len(labeled)} rows): "
+        f"{res['feed_legs']} ({smi})")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 22: {res['wall_s']:.1f} s ({smi})")
+    return res, detail
+
+
 def _unmeasured(entry: dict, where: str = "") -> list:
     """The time readings of a kernels-line entry that came back None (a
     profiler reading whose every session lost events), by key path; a
@@ -5780,6 +6259,13 @@ def main() -> int:
                                    cifar.pop("inputs"), cli_state)
     detail.extend(cifar_detail)
 
+    # 22. The ImageNet linear-evaluation job on a JPEG tree: the loaders,
+    # nvJPEG and kernel K, the decode-once caches and the host feed.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_imagenet_") as tmp:
+        imnet, imnet_detail = run_imagenet_linear_eval(tmp, dev)
+    detail.extend(imnet_detail)
+
     def total(runs):
         keys = next(iter(runs)).keys()
         return {k: sum(r[k] for r in runs) for k in keys}
@@ -5800,7 +6286,9 @@ def main() -> int:
              "resume_fit": resume["fit"]["launches"],
              "resume_cifar": resume["cifar"]["launches"],
              "torn_write": resume["torn"]["launches"],
-             "oom_ladder": resume["oom"]["launches"]}
+             "oom_ladder": resume["oom"]["launches"],
+             "imagenet_cli": imnet["launches"],
+             "imagenet_feed": imnet["feed_launches"]}
 
     def count(*names):
         by = {p: sum(v[n] for n in names) for p, v in paths.items()}
@@ -5876,7 +6364,15 @@ def main() -> int:
          "launches_by_function": {n: sum(v[n] for v in paths.values())
                                   for n in j_names},
          **times_j},
+        {"name": "crop_resize", "route": "cuda",
+         "source": "active_learning_tpu_torch/csrc/jpeg_decode.cu",
+         "replaces": "native/decode.cpp:110",
+         **count("crop_resize"), "max_abs_err": imnet["crop_resize_err"],
+         **imnet["crop_resize_times"]},
     ]
+    if any(v["crop_resize"] for p, v in paths.items()
+           if not p.startswith("imagenet_")):
+        raise AssertionError("kernel K launched on a path without JPEGs")
     early = [p for p in paths if not p.startswith("s2d_")]
     if any(paths[p]["stem_dw"] for p in early):
         raise AssertionError("kernel I launched on a path without the s2d "
@@ -5903,11 +6399,9 @@ def main() -> int:
                                     "cli": cli_smp},
                        "s2d": s2d, "dp": dp, "nccl": nccl,
                        "cifar_finetune": cifar, "resume_faults": resume,
+                       "imagenet_linear_eval": imnet,
                        "checks": detail}, fh, indent=1, default=str)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_smi()
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

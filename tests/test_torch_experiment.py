@@ -148,7 +148,7 @@ def test_without_a_card_the_cli_raises(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--metrics_backend", "csv"], ["--round_pipeline", "speculative"],
-    ["--dataset", "imagenet"], ["--feed_workers", "4"],
+    ["--train_feed", "resident"], ["--pool_backend", "disk"],
     ["--resident_scoring_bytes", "0"], ["--pool_sharding", "row"]])
 def test_flags_not_ported_exit_2_naming_the_roadmap(flags, capsys):
     # argparse keeps the last value of a repeated flag.

@@ -70,7 +70,8 @@ def _imports(path: str):
 
 @pytest.mark.parametrize("path", _port_files()
                          + [os.path.join(REPO, "chip_smoke.py"),
-                            os.path.join(REPO, "step_ab.py")],
+                            os.path.join(REPO, "step_ab.py"),
+                            os.path.join(REPO, "decode_race_check.py")],
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_forbidden_import_statement(path):
     bad = [name for name in _imports(path)
@@ -116,11 +117,32 @@ PARALLEL_SLICE = ("parallel/__init__", "parallel/mesh", "ops/int8_sync")
 CIFAR_SLICE = ("data/facsimile", "data/cifar10", "data/imbalance",
                "utils/pretrained", "experiment/gen_jobs", "ops/bn_act")
 
+# The ImageNet loaders and the host feed: the datasets, the decoders'
+# bindings, the caches and the device feeder, the crop-resize kernel's
+# wrapper.
+IMAGENET_SLICE = ("data/imagenet", "data/native", "data/cache",
+                  "ops/crop_resize")
+
 
 @pytest.mark.parametrize("module", TRAINING_SLICE + ACQUISITION_SLICE
                          + SAMPLERS_SLICE + S2D_SLICE + PARALLEL_SLICE
-                         + CIFAR_SLICE)
+                         + CIFAR_SLICE + IMAGENET_SLICE)
 def test_training_slice_module_is_checked(module):
     path = os.path.join(PKG, *module.split("/")) + ".py"
     assert path in _port_files()
     assert not [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN]
+
+
+@pytest.mark.parametrize("module", IMAGENET_SLICE)
+def test_imagenet_slice_imports_pil_only_inside_functions(module):
+    """PIL is on neither machine's list of what the port may need at
+    import: the decoders' fallback imports it when it runs."""
+    path = os.path.join(PKG, *module.split("/")) + ".py"
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                   ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in top if isinstance(n, ast.ImportFrom)]
+    assert not [n for n in names if n.split(".")[0] == "PIL"]

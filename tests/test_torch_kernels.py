@@ -9,6 +9,8 @@ runs on a machine without JAX; there, skip the JAX-importing conftest:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from active_learning_tpu_torch.ops import badge as bg
 from active_learning_tpu_torch.ops import balancing as bal
 from active_learning_tpu_torch.ops import bn_act as ba
 from active_learning_tpu_torch.ops import bn_train as bt
+from active_learning_tpu_torch.ops import crop_resize as cr
 from active_learning_tpu_torch.ops import boundary_radii as br
 from active_learning_tpu_torch.ops import fused_sgd as fs
 from active_learning_tpu_torch.ops import int8_sync as j
@@ -1509,3 +1512,210 @@ def test_int8_sync_wrappers_raise_rather_than_fall_back(cuda_device):
     with pytest.raises(ValueError):
         j.dequant_sum(q, torch.zeros(2, device=cuda_device),
                       torch.zeros(3, device=cuda_device))
+
+
+# -- the JPEG decode on the card: nvJPEG and the crop-resize kernel -----------
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "imagenet_jpeg")
+# The largest absolute difference allowed between a row the card's route
+# decodes (nvJPEG, then the kernel) and the JAX package's libjpeg row of
+# the committed fixture, at the fixture's crop boxes, 112 px.  nvJPEG's
+# inverse DCT and chroma upsampling are not libjpeg's.  Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W (CUDA 12.8's nvJPEG 12.4): at most 45,
+# and a mean of at most 1.93 a row (1.74 over the fixture); the bounds
+# round those up.
+NVJPEG_MAX_ABS = 48
+NVJPEG_MAX_MEAN_ABS = 2.0
+
+
+def _fixture():
+    with np.load(os.path.join(FIXTURE, "expected.npz")) as f:
+        exp = {k: f[k] for k in f.files}
+    exp["paths"] = [os.path.join(FIXTURE, str(n)) for n in exp["names"]]
+    return exp
+
+
+def _decoded_images(dev, seed):
+    """Seeded decoded images back to back, RGB and grayscale, one of
+    them a failed decode (channels 0), with boxes at the edges."""
+    rng = np.random.default_rng(seed)
+    shapes = [(333, 500, 3), (500, 375, 3), (7, 5, 1), (1, 1, 3),
+              (480, 640, 1), (64, 64, 3), (2, 300, 3)]
+    imgs = [rng.integers(0, 256, s, dtype=np.uint8) for s in shapes]
+    meta = np.zeros((len(imgs), 8), dtype=np.int64)
+    meta[:, 0] = np.cumsum([0] + [i.size for i in imgs])[:-1]
+    for n, (h, w, c) in enumerate(shapes):
+        ch = int(rng.integers(1, h + 1))
+        cw = int(rng.integers(1, w + 1))
+        meta[n, 1:] = (h, w, c, int(rng.integers(0, h - ch + 1)),
+                       int(rng.integers(0, w - cw + 1)), ch, cw)
+    meta[1, 4:] = (0, 0, 500, 375)          # the whole image
+    meta[5, 3] = 0                          # a failed decode
+    src = torch.from_numpy(np.concatenate([i.reshape(-1) for i in imgs]))
+    return src.to(dev), torch.from_numpy(meta)
+
+
+@pytest.mark.parametrize("out_size", [1, 37, 224, 300])
+def test_crop_resize_kernel_matches_plain(cuda_device, out_size):
+    """Bit for bit: integer arithmetic, and float32 taps rounded one
+    operation at a time on both sides (no fused multiply-add)."""
+    src, meta = _decoded_images(cuda_device, out_size)
+    before = cr.launches
+    got = cr.crop_resize(src, meta, out_size)
+    want = cr.crop_resize_reference(src.cpu(), meta, out_size)
+    torch.cuda.synchronize()
+    assert cr.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert not got[5].any()
+
+
+def test_crop_resize_wrapper_raises_rather_than_falls_back(cuda_device):
+    src, meta = _decoded_images(cuda_device, 0)
+    with pytest.raises(ValueError, match="host"):
+        cr.crop_resize(src, meta.to(cuda_device), 8)
+    bad = meta.clone()
+    bad[0, 1] = 10 ** 6                     # the image overruns src
+    with pytest.raises(ValueError, match="outside"):
+        cr.crop_resize(src, bad, 8)
+    with pytest.raises(TypeError):
+        cr.crop_resize(src.float(), meta, 8)
+
+
+def _nvjpeg_rows(dev, paths, rects, size):
+    from active_learning_tpu_torch.data import native
+    dims = native.jpeg_dims(paths, device=dev)
+    return dims, native.decode_crop_resize(paths, rects, size, device=dev,
+                                           dims=dims)
+
+
+def test_nvjpeg_route_is_near_the_libjpeg_fixture(cuda_device):
+    """The card's rows against the JAX package's libjpeg rows of the
+    committed fixture: the same dimensions and components, and rows
+    within the stated bounds."""
+    exp = _fixture()
+    dims, (rows, failed) = _nvjpeg_rows(cuda_device, exp["paths"],
+                                        exp["rects"], exp["rows"].shape[1])
+    np.testing.assert_array_equal(dims[:, :2], exp["dims"])
+    assert dims[-1, 2] == 1 and (dims[:-1, 2] == 3).all()
+    assert not failed.any()
+    diff = np.abs(rows.astype(np.int32) - exp["rows"].astype(np.int32))
+    print(f"nvJPEG vs libjpeg on the fixture: max {diff.max()}, mean "
+          f"{diff.mean():.4f}, worst row mean "
+          f"{diff.reshape(len(diff), -1).mean(1).max():.4f}")
+    assert diff.max() <= NVJPEG_MAX_ABS
+    assert diff.reshape(len(diff), -1).mean(1).max() <= NVJPEG_MAX_MEAN_ABS
+
+
+def test_nvjpeg_rows_are_the_kernel_over_nvjpegs_pixels(cuda_device):
+    """The route's rows are the plain crop-resize over the pixels nvJPEG
+    decoded (the kernel adds nothing of its own), and the same on every
+    call and from several threads at once."""
+    import threading
+
+    from active_learning_tpu_torch.data import native
+    exp = _fixture()
+    dims = native.jpeg_dims(exp["paths"], device=cuda_device)
+    buf, meta = native.nvjpeg_decode(exp["paths"], dims, 4, cuda_device)
+    torch.cuda.synchronize()
+    meta[:, 4:] = exp["val_rects"]
+    want = cr.crop_resize_reference(buf.cpu(), torch.from_numpy(meta), 224)
+    got, _ = native.decode_crop_resize(exp["paths"], exp["val_rects"], 224,
+                                       device=cuda_device, dims=dims)
+    assert np.array_equal(got, want.numpy())
+    outs = [None] * 4
+
+    def work(k):
+        outs[k] = native.decode_crop_resize(
+            exp["paths"], exp["val_rects"], 224, n_threads=k + 1,
+            device=cuda_device, dims=dims)[0]
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    for out in outs:
+        assert np.array_equal(out, got)
+
+
+def test_nvjpeg_concurrent_calls_equal_a_single_threaded_call(cuda_device):
+    """Many decode calls at once, from 6 Python threads with 1 to 8
+    worker threads each, over the fixture repeated 4 times, while matrix
+    products keep the card busy on a stream of their own: every call's
+    rows equal one single-threaded call's.  A decode state is used again
+    only after its queued copies and inverse DCT have run; reused
+    earlier, it corrupted rows when the card was busy."""
+    import threading
+
+    from active_learning_tpu_torch.data import native
+    exp = _fixture()
+    paths = exp["paths"] * 4
+    rects = np.concatenate([exp["val_rects"]] * 4)
+    dims = native.jpeg_dims(paths, device=cuda_device)
+    want, _ = native.decode_crop_resize(paths, rects, 224, n_threads=1,
+                                        device=cuda_device, dims=dims)
+    bad = []
+    stop = threading.Event()
+
+    def busy():
+        a = torch.randn(4096, 4096, device=cuda_device)
+        stream = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(stream):
+            while not stop.is_set():
+                for _ in range(20):
+                    a = (a @ a).clamp_(-1, 1)
+                stream.synchronize()
+
+    def work(k):
+        for it in range(6):
+            n_threads = 1 + (k + it) % 8
+            got, failed = native.decode_crop_resize(
+                paths, rects, 224, n_threads=n_threads, device=cuda_device,
+                dims=dims)
+            if failed.any() or not np.array_equal(got, want):
+                bad.append((k, it, n_threads))
+
+    load = threading.Thread(target=busy)
+    load.start()
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(6)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        stop.set()
+        load.join(timeout=60)
+    assert not any(t.is_alive() for t in threads + [load])
+    assert bad == []
+
+
+def test_cuda_gather_falls_back_per_file(cuda_device, tmp_path):
+    """A CMYK JPEG and a PNG in a tree on the card's route go through
+    PIL one by one; the JPEGs stay on nvJPEG."""
+    from PIL import Image
+
+    from active_learning_tpu_torch.data.core import IMAGENET_NORM, ViewSpec
+    from active_learning_tpu_torch.data.imagenet import ImageFolderDataset
+    exp = _fixture()
+    cls = tmp_path / "c0"
+    os.makedirs(cls)
+    for p in exp["paths"][:3]:
+        os.link(p, cls / os.path.basename(p))
+    rng = np.random.default_rng(0)
+    cmyk = rng.integers(0, 256, size=(50, 70, 4), dtype=np.uint8)
+    Image.frombytes("CMYK", (70, 50), cmyk.tobytes()).save(cls / "z.jpg")
+    Image.fromarray(rng.integers(0, 256, (60, 45, 3), dtype=np.uint8)).save(
+        cls / "y.png")
+    ds = ImageFolderDataset(str(tmp_path), ViewSpec(IMAGENET_NORM), False,
+                            num_classes=1, device=cuda_device)
+    before = cr.launches
+    rows = ds.gather(np.arange(len(ds)))
+    assert cr.launches == before + 1
+    for i, p in enumerate(ds.paths):
+        if p.endswith(("z.jpg", "y.png")):
+            assert np.array_equal(rows[i], ds._decode_one(p, i))
+        else:
+            assert rows[i].any()

@@ -172,8 +172,8 @@ def test_build_raises_without_nvcc(monkeypatch):
 def test_build_names_every_source_with_its_hash():
     assert _build.sources() == ["badge", "balancing", "bn_act",
                                 "bn_eval_bwd", "bn_train", "boundary_radii",
-                                "fused_sgd", "int8_sync", "kcenter",
-                                "prob_stats", "stem_dw"]
+                                "fused_sgd", "int8_sync", "jpeg_decode",
+                                "kcenter", "prob_stats", "stem_dw"]
     path = _build.library_path("prob_stats")
     assert path.startswith(_build.BUILD_DIR)
     assert path == _build.library_path("prob_stats")
